@@ -1,0 +1,358 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`,
+holds each against its plain PyTorch version on the card, reproduces
+the golden PAF on the card, and serves a bacterial-scale read-mapping
+deployment end to end through `repro_torch.launch.serve_genomics`:
+
+  1. card      — nvidia-smi name and power limit, torch and CUDA versions
+  2. build     — nvcc build seconds and the ptxas register/spill report
+  3. kernels   — each kernel against its plain version (0 mismatches) at
+                 the main-path shape B=256, w=64, k=24 and a (w, k)
+                 sweep; CUDA-event times of kernel and plain version and
+                 the card's bound for the same work
+  4. golden    — tests/data/serve_golden.paf byte for byte with cuda_dc and
+                 cuda_dc_v2, offline and online
+  5. serve     — a 4,641,652 bp reference (the length of E. coli K-12
+                 MG1655) and 8,192 Illumina 150 bp reads at 5% error,
+                 batch 256: offline on cuda_dc_v2 and cuda_dc (PAFs
+                 identical), online with 2,048 reads, the first 256 reads
+                 served on the CPU by the plain path (same rows), >= 90%
+                 mapped and position-correct, every kernel launched
+  6. breakdown — where one 256-read flush's time goes: seed+filter, and
+                 within align the DC kernel, the traceback and the rest
+
+Each phase prints one JSON line.  The kernels line precedes the card's
+nvidia-smi line, and the last line is ``{"ok": true, "device": {...}}``.
+Any failed check raises: the script then exits non-zero without that
+line.  It imports nothing of JAX or of the JAX package `repro`.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "build" / "chip_smoke"
+GOLDEN = ROOT / "tests" / "data" / "serve_golden.paf"
+GOLDEN_ARGS = ["--ref-len", "3000", "--reads", "10", "--read-len", "100",
+               "--batch", "4", "--buckets", "128"]
+FULL_ARGS = ["--ref-len", "4641652", "--read-len", "150", "--batch", "256"]
+FULL_READS, ONLINE_READS, CPU_READS = 8192, 2048, 256
+
+# Device-memory bytes/s by card name, from NVIDIA's data sheets (H100 SXM,
+# H100 PCIe and H200 SXM); a card not listed fails the bound rather than
+# borrow another card's rate.
+HBM_BYTES_PER_S = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
+# 32-bit lane operations/s outside the tensor cores: the H100's 67 TFLOP/s
+# float32 rate counts an FMA as two operations, so one-op-per-lane integer
+# and logic instructions peak at half of it.
+INT32_OPS_PER_S = 67e12 / 2
+SWEEP = [(256, 64, 24), (16, 64, 8), (16, 96, 16), (16, 128, 24), (5, 64, 24)]
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=30).stdout.strip()
+
+
+# ------------------------------------------------------------- kernels ----
+def dc_work(name: str, b: int, w: int, k: int) -> tuple[int, int]:
+    """(bytes, int32 operations) one call must move and do.
+
+    Bytes: each input read once, each output written once.  Operations:
+    per text char and word, row 0 is shl1 + OR (4 ops) and each row d >= 1
+    three shl1 (3 ops each), three ANDs and one OR (13 ops).
+    """
+    nw = w // 32
+    store = (w * (k + 1) * 3 * nw if name == "window_dc_batch"
+             else (w + 1) * (k + 1) * nw) * 4
+    return b * (2 * w + 4 + store), b * w * nw * (4 + 13 * k)
+
+
+def memory_bytes_per_s(card: str) -> float:
+    for key, rate in HBM_BYTES_PER_S:
+        if key in card:
+            return rate
+    raise RuntimeError(f"no data-sheet memory rate for {card!r}")
+
+
+def time_ms(torch, fn, trials: int, per_trial: int = 1) -> float:
+    """Median over ``trials`` of the CUDA-event time of ``per_trial``
+    back-to-back calls of ``fn()``, per call, after a warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(trials):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(per_trial):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / per_trial)
+    return statistics.median(times)
+
+
+def kernel_phase(torch, np, ops, dev) -> dict:
+    """Each kernel against its plain version on the card; returns rows."""
+    rows = {}
+    for kern in ops.KERNELS:
+        sweep = []
+        for b, w, k in SWEEP:
+            rng = np.random.default_rng(b * 1000 + w + k)
+            t = torch.from_numpy(rng.integers(0, 5, size=(b, w)).astype(np.int8)).to(dev)
+            p = torch.from_numpy(rng.integers(0, 5, size=(b, w)).astype(np.int8)).to(dev)
+            d, s = kern.wrapper(t, p, w=w, k=k)
+            d_ref, s_ref = kern.plain(t, p, w=w, k=k)
+            torch.cuda.synchronize()
+            mism = int((d != d_ref).sum()) + int((s != s_ref).sum())
+            err = max(int((d.long() - d_ref.long()).abs().max()),
+                      int(((s.long() & 0xFFFFFFFF) - (s_ref.long() & 0xFFFFFFFF))
+                          .abs().max()))
+            sweep.append({"b": b, "w": w, "k": k, "mismatches": mism,
+                          "max_abs_err": err})
+            check(mism == 0, f"{kern.name} b={b} w={w} k={k}: {mism} mismatches")
+        b, w, k = SWEEP[0]  # the main-path shape
+        rng = np.random.default_rng(7)
+        t = torch.from_numpy(rng.integers(0, 5, size=(b, w)).astype(np.int8)).to(dev)
+        p = torch.from_numpy(rng.integers(0, 5, size=(b, w)).astype(np.int8)).to(dev)
+        kernel_ms = time_ms(torch, lambda: kern.wrapper(t, p, w=w, k=k), 20, 10)
+        plain_ms = time_ms(torch, lambda: kern.plain(t, p, w=w, k=k), 20)
+        n_bytes, n_ops = dc_work(kern.name, b, w, k)
+        bytes_ms = n_bytes / memory_bytes_per_s(torch.cuda.get_device_name(dev)) * 1e3
+        ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+        rows[kern.name] = {
+            "name": kern.name, "route": "cuda", "source": kern.source,
+            "replaces": kern.replaces, "shape": [b, w, k],
+            "mismatches": sum(r["mismatches"] for r in sweep),
+            "max_abs_err": max(r["max_abs_err"] for r in sweep),
+            "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": n_bytes, "int32_ops": n_ops,
+            # no single PyTorch call computes GenASM-DC
+            "library_ms": None, "sweep": sweep,
+        }
+        emit("kernels_vs_plain", **rows[kern.name])
+    return rows
+
+
+# ------------------------------------------------------------- serving ----
+def golden_phase(sg) -> None:
+    want = GOLDEN.read_bytes()
+    runs = []
+    for backend in ("cuda_dc", "cuda_dc_v2"):
+        for online in (False, True):
+            out = OUT / f"golden_{backend}{'_online' if online else ''}.paf"
+            args = GOLDEN_ARGS + ["--align-backend", backend, "--device", "cuda"]
+            if online:
+                args += ["--online", "--rate", "2000"]
+            sg.main(args + ["--out", str(out)])
+            same = out.read_bytes() == want
+            runs.append({"backend": backend, "online": online, "identical": same})
+            check(same, f"golden PAF on the card, {backend} online={online}")
+    emit("golden", runs=runs)
+
+
+def flush_breakdown(torch, svc, backend: str) -> dict:
+    """Time one 256-read flush stage by stage, synchronising around the DC
+    and traceback calls inside the align loop (measurement only)."""
+    from repro_torch.align import batched
+    from repro_torch.core import genasm
+    from repro_torch.genomics import encode
+    from repro_torch.core.mapper import LinearMapExecutor
+
+    cfg = svc.config
+    cap = cfg.bucket_for(150)
+    ex = LinearMapExecutor(cfg=cfg.genasm, p_cap=cap,
+                           filter_bits=min(cfg.filter_bits, cap),
+                           filter_k=cfg.filter_k,
+                           max_candidates=cfg.max_candidates,
+                           minimizer_w=cfg.minimizer_w,
+                           minimizer_k=cfg.minimizer_k, backend=backend)
+    arr, lens = encode.batch_reads(svc.reads[:cfg.max_batch], cap)
+    index = svc.index.index
+    ex(index, arr, lens)  # warm-up
+    spent = {"dc": 0.0, "tb": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return res
+        return run
+
+    saved = (batched.window_dc_batch, batched.window_dc_batch_v2,
+             genasm.window_tb, genasm.window_tb_r)
+    batched.window_dc_batch = timed("dc", saved[0])
+    batched.window_dc_batch_v2 = timed("dc", saved[1])
+    genasm.window_tb = timed("tb", saved[2])
+    genasm.window_tb_r = timed("tb", saved[3])
+    try:
+        ex(index, arr, lens)
+    finally:
+        (batched.window_dc_batch, batched.window_dc_batch_v2,
+         genasm.window_tb, genasm.window_tb_r) = saved
+    times = {name: t1 - t0 for name, t0, t1, _ in ex.last_times}
+    align_s = times["align"]
+    return {
+        "backend": backend, "batch": cfg.max_batch, "bucket_cap": cap,
+        "n_windows": cfg.genasm.n_windows(cap),
+        "seed_filter_s": times["seed_filter"], "align_s": align_s,
+        "dc_s": spent["dc"], "tb_s": spent["tb"],
+        "align_other_s": align_s - spent["dc"] - spent["tb"],
+        "dc_share_of_align": spent["dc"] / align_s,
+        "tb_share_of_align": spent["tb"] / align_s,
+        "filter_vs_align": times["seed_filter"] / align_s,
+    }
+
+
+def serve_phase(torch, ops, sg) -> dict:
+    """Full-size serving on the card; returns the main path's launch counts."""
+    full = FULL_ARGS + ["--reads", str(FULL_READS), "--device", "cuda"]
+    results, launches = {}, {}
+    for backend in ("cuda_dc_v2", "cuda_dc"):
+        ops.reset_launch_counts()
+        s = sg.main(full + ["--align-backend", backend,
+                            "--out", str(OUT / f"full_{backend}.paf")])
+        counts = ops.launch_counts()
+        results[backend] = s
+        launches[backend] = counts
+        m = s["metrics"]
+        emit("serve_offline", backend=backend, reads=s["reads"],
+             mapped=s["mapped"], position_correct=s["correct"],
+             seconds=s["seconds"], reads_per_s=s["reads_per_s"],
+             seed_filter_s=m.get("stage_seed_filter_s"),
+             align_s=m.get("stage_align_s"),
+             flushes=m.get("batches_flushed"), launches=counts)
+        check(s["mapped"] >= 0.9 * s["reads"], f"{backend}: mapped < 90%")
+        check(s["correct"] >= 0.9 * s["reads"], f"{backend}: correct < 90%")
+    check((OUT / "full_cuda_dc.paf").read_bytes()
+          == (OUT / "full_cuda_dc_v2.paf").read_bytes(),
+          "cuda_dc and cuda_dc_v2 PAFs differ")
+    check(launches["cuda_dc_v2"]["window_dc_batch_v2"] > 0, "v2 kernel not launched")
+    check(launches["cuda_dc"]["window_dc_batch"] > 0, "v1 kernel not launched")
+
+    for backend in ("cuda_dc", "cuda_dc_v2"):
+        ops.reset_launch_counts()
+        s = sg.main(FULL_ARGS + ["--reads", str(ONLINE_READS), "--device",
+                                 "cuda", "--align-backend", backend,
+                                 "--online", "--rate", "20000",
+                                 "--max-delay-ms", "20",
+                                 "--out", str(OUT / f"online_{backend}.paf")])
+        counts = ops.launch_counts()
+        m = s["metrics"]
+        emit("serve_online", backend=backend, reads=s["reads"],
+             mapped=s["mapped"], position_correct=s["correct"],
+             reads_per_s=s["reads_per_s"], p50_ms=s["p50_ms"],
+             p99_ms=s["p99_ms"], flushes=m.get("batches_flushed"),
+             batch_occupancy_mean=m.get("batch_occupancy_mean"),
+             seed_filter_s=m.get("stage_seed_filter_s"),
+             align_s=m.get("stage_align_s"), launches=counts)
+        check(s["mapped"] >= 0.9 * s["reads"], f"online {backend}: mapped < 90%")
+        check(s["correct"] >= 0.9 * s["reads"], f"online {backend}: correct < 90%")
+        check(max(counts.values()) > 0, f"online {backend}: no kernel launched")
+
+    # the first 256 reads on the CPU, plain path, against the card's rows
+    args = sg.parse_args(FULL_ARGS + ["--reads", str(FULL_READS), "--device",
+                                      "cpu", "--align-backend", "torch"])
+    svc = sg.setup(args)
+    with sg.ServeEngine(svc.index, svc.config) as engine:
+        cpu_rows = sg.run_offline(
+            engine, svc.reads, list(range(CPU_READS)), batch=CPU_READS,
+            lease_s=600.0, row_fn=lambda g, r: sg.paf_row(g, r, svc.ref_len))
+    gpu_rows = [r for r in results["cuda_dc_v2"]["rows"] if r["gid"] < CPU_READS]
+    same = cpu_rows == gpu_rows
+    emit("cpu_vs_card", reads=CPU_READS, cpu_rows=len(cpu_rows),
+         card_rows=len(gpu_rows), identical=same)
+    check(same, "CPU plain path and card disagree on the first 256 reads")
+
+    # where one full flush's time goes, on the card
+    gsvc = sg.setup(sg.parse_args(FULL_ARGS + ["--reads", str(CPU_READS),
+                                               "--device", "cuda"]))
+    for backend in ("cuda_dc_v2", "cuda_dc"):
+        emit("breakdown", **flush_breakdown(torch, gsvc, backend))
+    return {"window_dc_batch": launches["cuda_dc"]["window_dc_batch"],
+            "window_dc_batch_v2": launches["cuda_dc_v2"]["window_dc_batch_v2"]}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        import numpy as np
+
+        from repro_torch.kernels import _build, ops
+        from repro_torch.launch import serve_genomics as sg
+    except ImportError as e:
+        print(f"chip_smoke: the repro_torch package is missing ({e})",
+              file=sys.stderr)
+        return 3
+    OUT.mkdir(parents=True, exist_ok=True)
+    t_start = time.perf_counter()
+    card = card_line()
+    print(card, flush=True)
+    emit("card", nvidia_smi=card, torch=torch.__version__,
+         cuda=torch.version.cuda, python=sys.version.split()[0],
+         device_name=torch.cuda.get_device_name(0),
+         device_count=torch.cuda.device_count())
+
+    infos = _build.build_all()
+    (OUT / "build.log").write_text("\n".join(i.log for i in infos))
+    emit("build", seconds=max(i.seconds for i in infos),
+         libraries=[str(i.path.relative_to(ROOT)) if i.path.is_relative_to(ROOT)
+                    else str(i.path) for i in infos],
+         ptxas=[ln.strip() for i in infos for ln in i.log.splitlines()
+                if "registers" in ln or "spill" in ln])
+
+    dev = torch.device("cuda", 0)
+    rows = kernel_phase(torch, np, ops, dev)
+    golden_phase(sg)
+    launches = serve_phase(torch, ops, sg)
+    for name, n in launches.items():
+        rows[name]["launches"] = n
+    emit("done", seconds=time.perf_counter() - t_start)
+    print(json.dumps({"kernels": [
+        {key: r[key] for key in ("name", "route", "source", "replaces",
+                                 "launches", "mismatches", "max_abs_err", "ms",
+                                 "kernel_ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")}
+        for r in rows.values()]}), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,213 @@
+"""End-to-end linear read mapper (paper Figure 2-2 with GenASM inside).
+
+Port of `repro.core.mapper`.  Seed-and-extend: MinSeed-style minimizer
+seeding → GenASM-DC pre-alignment filter (`bitap_search`) over every
+read's candidates → windowed GenASM DC+TB alignment of the best
+candidate, dispatched through `repro_torch.align.align_batch` so every
+registered backend drives the same pipeline.  Both stages run batched
+over the reads on the index's device.
+"""
+from __future__ import annotations
+
+import time
+from typing import NamedTuple
+
+import torch
+
+from repro_torch import align as align_dispatch
+
+from .bitvector import SENTINEL, WILDCARD
+from .genasm import GenASMConfig
+from .genasm_dc import bitap_search
+from .minimizer_index import ReferenceIndex
+from .segram.minimizer import seed_candidates
+
+# lexicographic-selection sentinel: masked-out candidates sort last
+POS_SENTINEL = 2 ** 31 - 1
+
+
+class MapResult(NamedTuple):
+    position: torch.Tensor  # [B] int32 mapped reference start (-1 if unmapped)
+    distance: torch.Tensor  # [B] int32 edit distance (-1 if unmapped)
+    ops: torch.Tensor  # [B, cap] packed CIGAR
+    n_ops: torch.Tensor
+    failed: torch.Tensor
+
+
+class SeedFilterResult(NamedTuple):
+    position: torch.Tensor  # [B] int32 best candidate start (filter-refined)
+    prefilter_ok: torch.Tensor  # [B] bool — candidate survived the filter
+    text: torch.Tensor  # [B, t_cap] int8 reference region at position
+    t_len: torch.Tensor  # [B] int32 valid text length
+    pattern: torch.Tensor  # [B, p_cap] int8 wildcard-padded read
+    distance: torch.Tensor  # [B] int32 winning filter distance
+
+
+def lex_best(fd: torch.Tensor, fpos: torch.Tensor) -> torch.Tensor:
+    """Per-row index of the lexicographically-minimal ``(fd, fpos)``.
+
+    Minimizing ``(distance, position)`` makes the winner a function of
+    the candidate *set*, not its order (the reference's rule).
+    """
+    pm = torch.where(fd == fd.min(-1, keepdim=True).values, fpos, POS_SENTINEL)
+    return pm.argmin(-1)
+
+
+def _ref_window(ref: torch.Tensor, start: torch.Tensor, size: int) -> torch.Tensor:
+    """``[..., size]`` reference windows at ``start``, SENTINEL past the end.
+
+    The reference slices a sentinel-padded copy of the reference with
+    ``lax.dynamic_slice``; every start it passes leaves the window inside
+    that padded buffer, so a gather with the same padding is identical.
+    """
+    idx = start.unsqueeze(-1) + torch.arange(size, device=ref.device)
+    inside = idx < ref.shape[0]
+    return torch.where(inside, ref[idx.clamp(max=ref.shape[0] - 1)], SENTINEL)
+
+
+def seed_and_filter_batch(index: ReferenceIndex, reads: torch.Tensor,
+                          read_lens: torch.Tensor, *, p_cap: int, t_cap: int,
+                          filter_bits: int, filter_k: int, max_candidates: int,
+                          minimizer_w: int, minimizer_k: int) -> SeedFilterResult:
+    """Seed + pre-alignment-filter a ``[B, cap]`` read batch.
+
+    The filter takes the exact distance of each read's first
+    ``filter_bits`` bases against every candidate region (one
+    `bitap_search` over ``[B·C]`` lanes), refines each candidate's start
+    to its best match, and keeps the lexicographically best ``(distance,
+    position)`` candidate per read (``POS_SENTINEL`` when the read had no
+    seed hits).  Returns that candidate's ``[t_cap]`` alignment text.
+    """
+    ref = index.ref
+    ref_len = ref.shape[0]
+    b = reads.shape[0]
+    lens = read_lens.to(torch.int64)
+    starts, votes = seed_candidates(reads, index.hashes, index.positions,
+                                    w=minimizer_w, k=minimizer_k,
+                                    max_candidates=max_candidates)
+    n_cand = starts.shape[1]
+    # candidate starts are diagonal-bucketed to 32 (minimizer voting), so the
+    # filter window must absorb bucket quantization + k edits of drift
+    margin = filter_k + 32
+    region_len = filter_bits + 2 * margin
+
+    # pre-alignment filter (use case 2): exact distance of the read's
+    # first filter_bits bases against each candidate region prefix
+    bit_idx = torch.arange(filter_bits, device=reads.device)
+    fpat = torch.where(bit_idx < lens.clamp(max=filter_bits).unsqueeze(1),
+                       reads[:, :filter_bits], WILDCARD).to(torch.int8)
+    s0 = (starts - margin).clamp(0, max(ref_len - 1, 0))  # [B, C]
+    region = _ref_window(ref, s0, region_len).reshape(b * n_cand, region_len)
+    dists = bitap_search(region, fpat.repeat_interleave(n_cand, dim=0),
+                         m_bits=filter_bits, k=filter_k).reshape(b, n_cand, -1)
+    fd = dists.min(-1).values
+    fpos = s0 + dists.argmin(-1)
+    fd = torch.where(votes > 0, fd, filter_k + 1)
+    fpos = torch.where(votes > 0, fpos, POS_SENTINEL)
+    best = lex_best(fd, fpos).unsqueeze(1)
+    pos = torch.gather(fpos, 1, best).squeeze(1)
+    best_d = torch.gather(fd, 1, best).squeeze(1)
+
+    text = _ref_window(ref, pos.clamp(max=ref_len), t_cap)
+    r = reads[:, :p_cap]
+    if r.shape[1] < p_cap:
+        r = torch.nn.functional.pad(r, (0, p_cap - r.shape[1]), value=WILDCARD)
+    pat = torch.where(torch.arange(p_cap, device=reads.device) < lens.unsqueeze(1),
+                      r, WILDCARD).to(torch.int8)
+    return SeedFilterResult(
+        position=pos.to(torch.int32),
+        prefilter_ok=best_d <= filter_k,
+        text=text.to(torch.int8),
+        t_len=(ref_len - pos).clamp(0, t_cap).to(torch.int32),
+        pattern=pat,
+        distance=best_d.to(torch.int32),
+    )
+
+
+def _finish(sf: SeedFilterResult, read_lens: torch.Tensor, *, cfg, backend,
+            p_cap) -> MapResult:
+    res = align_dispatch.align_batch(
+        sf.text, sf.pattern, read_lens.to(torch.int32), sf.t_len,
+        cfg=cfg, backend=backend, p_cap=p_cap)
+    failed = res.failed | (~sf.prefilter_ok)
+    return MapResult(
+        position=torch.where(failed, -1, sf.position).to(torch.int32),
+        distance=torch.where(failed, -1, res.distance).to(torch.int32),
+        ops=res.ops, n_ops=res.n_ops, failed=failed)
+
+
+def map_batch(
+    index: ReferenceIndex,
+    reads: torch.Tensor,
+    read_lens: torch.Tensor,
+    *,
+    cfg: GenASMConfig = GenASMConfig(),
+    p_cap: int = 256,
+    filter_bits: int = 128,
+    filter_k: int = 12,
+    max_candidates: int = 4,
+    minimizer_w: int = 10,
+    minimizer_k: int = 15,
+    backend: str | None = None,
+) -> MapResult:
+    """Map a read batch against the indexed reference.
+
+    ``reads``/``read_lens`` are moved to the index's device; ``backend``
+    selects the alignment implementation by registry name (None/"auto"
+    resolves per device).
+    """
+    dev = index.device
+    reads = torch.as_tensor(reads, device=dev)
+    read_lens = torch.as_tensor(read_lens, device=dev)
+    sf = seed_and_filter_batch(
+        index, reads, read_lens, p_cap=p_cap, t_cap=p_cap + cfg.w * 2,
+        filter_bits=filter_bits, filter_k=filter_k,
+        max_candidates=max_candidates, minimizer_w=minimizer_w,
+        minimizer_k=minimizer_k)
+    return _finish(sf, read_lens, cfg=cfg, backend=backend, p_cap=p_cap)
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+class LinearMapExecutor:
+    """Two-stage linear mapper: seed/filter stage + align stage.
+
+    Computes exactly what `map_batch` computes, but times each stage:
+    every call records ``last_times`` — ``(stage, t_start, t_end,
+    attrs)`` on the monotonic clock, with the device synchronised at
+    each stage boundary — which the serve engine replays into its
+    tracer and metrics.
+    """
+
+    def __init__(self, *, cfg: GenASMConfig = GenASMConfig(),
+                 p_cap: int = 256,
+                 filter_bits: int = 128,
+                 filter_k: int = 12,
+                 max_candidates: int = 4,
+                 minimizer_w: int = 10,
+                 minimizer_k: int = 15,
+                 backend: str | None = None):
+        self._cfg, self._p_cap, self._backend = cfg, p_cap, backend
+        self._sf_kw = dict(p_cap=p_cap, t_cap=p_cap + cfg.w * 2,
+                           filter_bits=filter_bits, filter_k=filter_k,
+                           max_candidates=max_candidates,
+                           minimizer_w=minimizer_w, minimizer_k=minimizer_k)
+        self.last_times: list[tuple[str, float, float, dict]] = []
+
+    def __call__(self, index: ReferenceIndex, reads, read_lens) -> MapResult:
+        dev = index.device
+        reads = torch.as_tensor(reads, device=dev)
+        lens = torch.as_tensor(read_lens, device=dev)
+        t0 = time.monotonic()
+        sf = seed_and_filter_batch(index, reads, lens, **self._sf_kw)
+        _sync(dev)
+        t1 = time.monotonic()
+        res = _finish(sf, lens, cfg=self._cfg, backend=self._backend,
+                      p_cap=self._p_cap)
+        _sync(dev)
+        t2 = time.monotonic()
+        self.last_times = [("seed_filter", t0, t1, {}), ("align", t1, t2, {})]
+        return res

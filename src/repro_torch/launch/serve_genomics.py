@@ -1,0 +1,222 @@
+"""Read-mapping service driver (the paper's workload, end to end).
+
+Port of `repro.launch.serve_genomics` for the linear workload
+(``--mode linear``) on one device.  Both serving modes sit on the same
+`repro_torch.serve` micro-batching engine, so they produce identical
+output for the same read set:
+
+* **offline** (default) — drain a fixed read set through the lease-based
+  work queue; each claimed quantum's reads are submitted to the engine.
+* **``--online``** — synthetic open-loop Poisson arrivals through the
+  engine's admission queue, reporting reads/s and tail latency.
+
+``--device`` (default ``cuda``) picks where the index, the mapper and
+the kernels run.  With ``cuda`` and no visible GPU the driver raises; it
+never carries on on the CPU.  Pass ``--device cpu`` to run the plain
+PyTorch versions on the CPU.
+
+    python -m repro_torch.launch.serve_genomics --reads 64 --out out.paf
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import minimizer_index
+from repro_torch.core.genasm import GenASMConfig
+from repro_torch.dist.fault import WorkQueue
+from repro_torch.genomics import io, simulate
+from repro_torch.serve import EngineConfig, ServeEngine, Session, poisson_load
+
+
+def paf_row(gid: int, res, ref_len: int) -> dict:
+    """PAF row dict for one mapped read.
+
+    Carries the global read id in ``"gid"`` (not a PAF column — strip via
+    `strip_gids` before `io.write_paf`).
+    """
+    L = res.read_len
+    return {
+        "gid": gid,
+        "qname": f"read{gid}", "qlen": L, "qstart": 0,
+        "qend": L, "strand": "+", "tname": "ref",
+        "tlen": ref_len, "tstart": res.position,
+        "tend": res.position + L, "nmatch": L - res.distance,
+        "alnlen": L, "mapq": 60,
+        "cigar": io.cigar_string(res.ops, res.n_ops),
+    }
+
+
+def strip_gids(rows: list[dict]) -> list[dict]:
+    return [{k: v for k, v in r.items() if k != "gid"} for r in rows]
+
+
+def run_offline(engine: ServeEngine, reads, read_ids, *, batch: int,
+                lease_s: float, row_fn) -> list[dict]:
+    """Work-queue path: claim a quantum of read ids, submit it, complete."""
+    quanta = [read_ids[i: i + batch] for i in range(0, len(read_ids), batch)]
+    q = WorkQueue(len(quanta), lease_s=lease_s)
+    rows: dict[int, dict] = {}  # keyed by gid: stolen twins overwrite, not dup
+    while True:
+        b = q.claim()
+        if b is None:
+            if q.finished:
+                break
+            time.sleep(0.01)  # all leases live; back off and retry
+            continue
+        sess = Session(engine)
+        for gid in quanta[b]:
+            sess.submit(reads[gid], meta=int(gid))
+        for gid, res in sess.drain():
+            if res.position >= 0:
+                rows[gid] = row_fn(gid, res)
+        q.complete(b)
+    return [rows[g] for g in sorted(rows)]
+
+
+def run_online(engine: ServeEngine, reads, read_ids, *, rate_rps: float,
+               seed: int, row_fn):
+    """Poisson open-loop path through the engine's admission queue."""
+    rep = poisson_load(engine, [reads[g] for g in read_ids],
+                       rate_rps=rate_rps, seed=seed,
+                       metas=[int(g) for g in read_ids])
+    rows = [row_fn(gid, res) for gid, res in rep.results
+            if res.position >= 0]
+    return sorted(rows, key=lambda r: r["gid"]), rep
+
+
+def resolve_device(name: str) -> torch.device:
+    """``--device`` -> torch device; a CUDA device must exist."""
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {name}: no CUDA device is visible; pass --device cpu "
+            f"to run the plain PyTorch path on the CPU")
+    return device
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ref-len", type=int, default=20_000)
+    ap.add_argument("--reads", type=int, default=64)
+    ap.add_argument("--read-len", type=int, default=150)
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--profile", default="illumina",
+                    choices=list(simulate.PROFILES))
+    ap.add_argument("--out", default=None, help="PAF output path")
+    ap.add_argument("--lease-s", type=float, default=600.0,
+                    help="work-queue lease; expired leases are stolen")
+    ap.add_argument("--mode", default="linear", choices=("linear",),
+                    help="linear reference → PAF")
+    ap.add_argument("--align-backend", default="auto",
+                    help="repro_torch.align backend: auto|ref|torch|cuda_dc|"
+                         "cuda_dc_v2 (auto = cuda_dc on a CUDA device, torch "
+                         "on the CPU; env REPRO_ALIGN_BACKEND overrides auto)")
+    ap.add_argument("--num-shards", type=int, default=1, choices=(1,),
+                    help="reference shards (this port serves one)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device for the index, mapper and kernels "
+                         "(cuda, cuda:N or cpu)")
+    ap.add_argument("--online", action="store_true",
+                    help="open-loop Poisson arrivals instead of the "
+                         "offline work-queue drain")
+    ap.add_argument("--rate", type=float, default=200.0,
+                    help="--online arrival rate (reads/s)")
+    ap.add_argument("--buckets", default="160,320,640,1280",
+                    help="length-bucket ladder of pattern caps")
+    ap.add_argument("--max-delay-ms", type=float, default=5.0,
+                    help="micro-batch flush deadline")
+    return ap.parse_args(argv)
+
+
+class Service(NamedTuple):
+    """What `setup` builds from the arguments: data, index and engine config."""
+
+    ref_len: int
+    reads: list  # simulated reads, int8 base ids
+    true_pos: np.ndarray
+    index: minimizer_index.EpochedIndex
+    config: EngineConfig
+
+
+def setup(args: argparse.Namespace) -> Service:
+    """Simulate the reference and reads from their seeds, index the
+    reference on ``--device`` and derive the engine configuration."""
+    device = resolve_device(args.device)
+    prof = simulate.PROFILES[args.profile]
+    ref = simulate.random_reference(args.ref_len, seed=1)
+    rs = simulate.simulate_reads(ref, n_reads=args.reads,
+                                 read_len=args.read_len, profile=prof, seed=2)
+    buckets = tuple(int(b) for b in args.buckets.split(","))
+    need = ((args.read_len + 63) // 64) * 64 + 64  # offline driver's old cap
+    if max(buckets) < need:  # never trim reads the single-cap path held
+        buckets += (need,)
+    print(f"indexing reference ({args.ref_len} bp) on {device}...")
+    epi = minimizer_index.build_epoched_index(ref, w=8, k=12, device=device)
+    cfg = EngineConfig(
+        buckets=buckets, max_batch=args.batch,
+        max_delay_s=args.max_delay_ms / 1e3,
+        genasm=GenASMConfig(),
+        align_backend=args.align_backend,
+        filter_k=max(8, int(args.read_len * prof.error_rate * 1.5)),
+        minimizer_w=8, minimizer_k=12)
+    return Service(args.ref_len, rs.reads, rs.true_pos, epi, cfg)
+
+
+def main(argv=None) -> dict:
+    """Run the service; returns a summary (rows, throughput, metrics)."""
+    args = parse_args(argv)
+    svc = setup(args)
+
+    def row_fn(gid, res):
+        return paf_row(gid, res, svc.ref_len)
+
+    read_ids = np.arange(args.reads)
+    rep = None
+    with ServeEngine(svc.index, svc.config) as engine:
+        print(f"align backend: {engine.align_backend}")
+        t0 = time.time()
+        if args.online:
+            rows, rep = run_online(engine, svc.reads, read_ids,
+                                   rate_rps=args.rate, seed=7, row_fn=row_fn)
+            print(f"online: {rep.reads_per_s:.1f} reads/s, "
+                  f"p50 {rep.p50_ms:.1f} ms, p99 {rep.p99_ms:.1f} ms")
+        else:
+            rows = run_offline(engine, svc.reads, read_ids, batch=args.batch,
+                               lease_s=args.lease_s, row_fn=row_fn)
+        dt = time.time() - t0
+        m = engine.metrics.snapshot()
+        hit_rate = engine.cache.hit_rate
+        backend = engine.align_backend
+
+    mapped = len(rows)
+    correct = sum(
+        1 for r in rows if abs(r["tstart"] - svc.true_pos[r["gid"]]) <= 16)
+    occ = m.get("batch_occupancy_mean", 0.0)
+    useful = m.get("bases_useful", 0.0)
+    waste = m.get("bases_padded_read", 0.0)
+    print(f"mapped {mapped}/{len(read_ids)} reads in {dt:.2f}s "
+          f"({len(read_ids) / dt if dt else 0.0:.1f} reads/s); "
+          f"position-correct: {correct}/{mapped}")
+    print(f"batch occupancy {occ:.2f}, padded-base waste "
+          f"{waste / max(useful + waste, 1):.1%}, "
+          f"cache hit rate {hit_rate:.1%}")
+    if args.out:
+        io.write_paf(args.out, strip_gids(rows))
+        print(f"wrote {args.out}")
+    return {
+        "rows": rows, "reads": len(read_ids), "mapped": mapped,
+        "correct": correct, "seconds": dt,
+        "reads_per_s": len(read_ids) / dt if dt else 0.0,
+        "p50_ms": rep.p50_ms if rep else None,
+        "p99_ms": rep.p99_ms if rep else None,
+        "align_backend": backend, "metrics": m,
+    }
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,58 @@
+"""The port stands alone: no JAX and nothing of `repro` in `repro_torch`.
+
+A static scan of every module of `src/repro_torch/` and of
+`chip_smoke.py`, a fresh interpreter that imports the service entry
+point, and the entry point's refusal to fall back to the CPU.
+"""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
+    [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_entry_point_imports_no_jax_or_repro():
+    code = ("import sys; import repro_torch.launch.serve_genomics; "
+            "mods = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro')]; print(mods); assert not mods, mods")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_default_device_raises_without_cuda(tmp_path):
+    from repro_torch.launch import serve_genomics
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default --device cuda is valid")
+    out = tmp_path / "never.paf"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve_genomics.main(["--ref-len", "2000", "--reads", "2",
+                             "--out", str(out)])
+    assert not out.exists()
