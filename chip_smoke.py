@@ -5,15 +5,19 @@
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`,
 holds each against its plain PyTorch version on the card, reproduces
-the golden PAF on the card, and serves a bacterial-scale read-mapping
-deployment end to end through `repro_torch.launch.serve_genomics`:
+the golden PAF and GAF on the card, and serves bacterial-scale linear
+and sequence-to-graph read-mapping deployments end to end through
+`repro_torch.launch.serve_genomics`:
 
   1. card      — nvidia-smi name and power limit, torch and CUDA versions
   2. build     — nvcc build seconds and the ptxas register/spill report
   3. kernels   — each kernel against its plain version (0 mismatches) at
-                 the main-path shape B=256, w=64, k=24 and a (w, k)
-                 sweep; CUDA-event times of kernel and plain version and
-                 the card's bound for the same work
+                 its main-path shapes and a sweep; CUDA-event times of
+                 kernel and plain version and the card's bound for the
+                 same work.  GenASM-DC at B=256, w=64, k=24; BitAlign at
+                 the graph filter's B=1,024, N=1,536, m_bits=128, k=11
+                 (R off and on) and the graph align loop's B=256, N=64,
+                 m_bits=64, k=24
   4. golden    — tests/data/serve_golden.paf byte for byte with cuda_dc and
                  cuda_dc_v2, offline and online
   5. serve     — a 4,641,652 bp reference (the length of E. coli K-12
@@ -24,6 +28,14 @@ deployment end to end through `repro_torch.launch.serve_genomics`:
                  mapped and position-correct, every kernel launched
   6. breakdown — where one 256-read flush's time goes: seed+filter, and
                  within align the DC kernel, the traceback and the rest
+  7. graph     — tests/data/serve_graph_golden.gaf byte for byte with
+                 graph_cuda, offline and online; the same reference as a
+                 variation graph with 23,208 variants (--mode graph):
+                 8,192 reads offline, 2,048 online at half the offline
+                 rate, the first 256 reads on the CPU with graph_torch
+                 (same rows), >= 90% mapped and position-correct, the
+                 BitAlign kernel launched at both call sites (filter and
+                 align), and one flush's breakdown
 
 Each phase prints one JSON line.  The kernels line precedes the card's
 nvidia-smi line, and the last line is ``{"ok": true, "device": {...}}``.
@@ -42,9 +54,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "build" / "chip_smoke"
 GOLDEN = ROOT / "tests" / "data" / "serve_golden.paf"
+GOLDEN_GAF = ROOT / "tests" / "data" / "serve_graph_golden.gaf"
 GOLDEN_ARGS = ["--ref-len", "3000", "--reads", "10", "--read-len", "100",
                "--batch", "4", "--buckets", "128"]
 FULL_ARGS = ["--ref-len", "4641652", "--read-len", "150", "--batch", "256"]
+# the same reference as a variation graph: 4641652 // 200 = 23,208 variants
+GRAPH_ARGS = ["--mode", "graph"] + FULL_ARGS
 FULL_READS, ONLINE_READS, CPU_READS = 8192, 2048, 256
 
 # Device-memory bytes/s by card name, from NVIDIA's data sheets (H100 SXM,
@@ -55,7 +70,38 @@ HBM_BYTES_PER_S = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 # float32 rate counts an FMA as two operations, so one-op-per-lane integer
 # and logic instructions peak at half of it.
 INT32_OPS_PER_S = 67e12 / 2
-SWEEP = [(256, 64, 24), (16, 64, 8), (16, 96, 16), (16, 128, 24), (5, 64, 24)]
+# per kernel: its main-path call sites (site, shape) and a sweep of shapes
+WINDOW_SITES = [("window_step", dict(b=256, w=64, k=24))]
+WINDOW_SWEEP = [dict(b=b, w=w, k=k) for b, w, k in (
+    (16, 64, 8), (16, 96, 16), (16, 128, 24), (5, 64, 24))]
+SITES = {
+    "window_dc_batch": WINDOW_SITES,
+    "window_dc_batch_v2": WINDOW_SITES,
+    "bitalign_dc_batch": [
+        ("filter", dict(b=1024, n=1536, m_bits=128, k=11, store_r=False)),
+        ("filter_with_r", dict(b=1024, n=1536, m_bits=128, k=11,
+                               store_r=True)),
+        ("align", dict(b=256, n=64, m_bits=64, k=24, store_r=True)),
+    ],
+}
+SWEEPS = {
+    "window_dc_batch": WINDOW_SWEEP,
+    "window_dc_batch_v2": WINDOW_SWEEP,
+    # ragged batches, p_lens < m_bits, dense hops (hops past N included);
+    # the main-path sites draw hops at the served graph's density
+    "bitalign_dc_batch": [
+        dict(b=37, n=200, m_bits=128, k=11, store_r=True, short=True,
+             hop_rate=0.2),
+        dict(b=5, n=64, m_bits=96, k=16, store_r=False, short=True,
+             hop_rate=0.5),
+        dict(b=40, n=100, m_bits=128, k=32, store_r=True, short=True,
+             hop_rate=0.05),
+        dict(b=300, n=64, m_bits=64, k=24, store_r=True, short=True,
+             hop_rate=0.1),
+        dict(b=1024, n=1536, m_bits=128, k=11, store_r=False,
+             hop_rate=0.02),
+    ],
+}
 
 
 def emit(phase: str, **fields) -> None:
@@ -74,17 +120,41 @@ def card_line() -> str:
 
 
 # ------------------------------------------------------------- kernels ----
-def dc_work(name: str, b: int, w: int, k: int) -> tuple[int, int]:
-    """(bytes, int32 operations) one call must move and do.
+def dc_work(name: str, args, kw) -> tuple[int, int]:
+    """(bytes, int32 operations) one GenASM-DC call must move and do.
 
     Bytes: each input read once, each output written once.  Operations:
     per text char and word, row 0 is shl1 + OR (4 ops) and each row d >= 1
     three shl1 (3 ops each), three ANDs and one OR (13 ops).
     """
+    b, w, k = args[0].shape[0], kw["w"], kw["k"]
     nw = w // 32
     store = (w * (k + 1) * 3 * nw if name == "window_dc_batch"
              else (w + 1) * (k + 1) * nw) * 4
     return b * (2 * w + 4 + store), b * w * nw * (4 + 13 * k)
+
+
+def bitalign_work(args, kw) -> tuple[int, int]:
+    """(bytes, int32 operations) one BitAlign call must move and do, for
+    these inputs.
+
+    Bytes: bases, hopBits, patterns and p_lens read once; dists, and R
+    when stored, written once.  Operations: per node and word, row 0 is
+    shl1 + OR + the tail AND (5 ops), each row d >= 1 three shl1 (9), one
+    OR and four ANDs (14); the hop combine is one AND per row and word
+    for each hop bit these inputs set.
+    """
+    from repro_torch.graph.index import popcount32
+
+    bases, succ, _, _ = args
+    b, n = bases.shape
+    m_bits, k = kw["m_bits"], kw["k"]
+    nw = m_bits // 32
+    r_bytes = b * n * (k + 1) * nw * 4 if kw["store_r"] else 0
+    hops = int(popcount32(succ).sum())
+    return (b * n * (1 + 4 + 4) + b * (m_bits + 4) + r_bytes,
+            b * n * nw * (5 + 14 * k) + hops * (k + 1) * nw)
+
 
 
 def memory_bytes_per_s(card: str) -> float:
@@ -112,45 +182,63 @@ def time_ms(torch, fn, trials: int, per_trial: int = 1) -> float:
     return statistics.median(times)
 
 
+def compare(torch, got, want, what: str) -> tuple[int, int]:
+    """(mismatching words, max abs difference) of two output tuples, words
+    compared as uint32; an output one side leaves out (None) must be left
+    out by both."""
+    mism, err = 0, 0
+    for g, w in zip(got, want):
+        check((g is None) == (w is None), f"{what}: outputs present differ")
+        if g is None or g.numel() == 0:
+            continue
+        mism += int((g != w).sum())
+        err = max(err, int(((g.long() & 0xFFFFFFFF) - (w.long() & 0xFFFFFFFF))
+                           .abs().max()))
+    return mism, err
+
+
 def kernel_phase(torch, np, ops, dev) -> dict:
     """Each kernel against its plain version on the card; returns rows."""
+    card = torch.cuda.get_device_name(dev)
     rows = {}
     for kern in ops.KERNELS:
-        sweep = []
-        for b, w, k in SWEEP:
-            rng = np.random.default_rng(b * 1000 + w + k)
-            t = torch.from_numpy(rng.integers(0, 5, size=(b, w)).astype(np.int8)).to(dev)
-            p = torch.from_numpy(rng.integers(0, 5, size=(b, w)).astype(np.int8)).to(dev)
-            d, s = kern.wrapper(t, p, w=w, k=k)
-            d_ref, s_ref = kern.plain(t, p, w=w, k=k)
+        sweep, sites = [], []
+        for i, shape in enumerate([s for _, s in SITES[kern.name]]
+                                  + SWEEPS[kern.name]):
+            args, kw = kern.make_inputs(np.random.default_rng(100 + i), dev,
+                                        **shape)
+            mism, err = compare(torch, kern.wrapper(*args, **kw),
+                                kern.plain(*args, **kw), kern.name)
             torch.cuda.synchronize()
-            mism = int((d != d_ref).sum()) + int((s != s_ref).sum())
-            err = max(int((d.long() - d_ref.long()).abs().max()),
-                      int(((s.long() & 0xFFFFFFFF) - (s_ref.long() & 0xFFFFFFFF))
-                          .abs().max()))
-            sweep.append({"b": b, "w": w, "k": k, "mismatches": mism,
-                          "max_abs_err": err})
-            check(mism == 0, f"{kern.name} b={b} w={w} k={k}: {mism} mismatches")
-        b, w, k = SWEEP[0]  # the main-path shape
-        rng = np.random.default_rng(7)
-        t = torch.from_numpy(rng.integers(0, 5, size=(b, w)).astype(np.int8)).to(dev)
-        p = torch.from_numpy(rng.integers(0, 5, size=(b, w)).astype(np.int8)).to(dev)
-        kernel_ms = time_ms(torch, lambda: kern.wrapper(t, p, w=w, k=k), 20, 10)
-        plain_ms = time_ms(torch, lambda: kern.plain(t, p, w=w, k=k), 20)
-        n_bytes, n_ops = dc_work(kern.name, b, w, k)
-        bytes_ms = n_bytes / memory_bytes_per_s(torch.cuda.get_device_name(dev)) * 1e3
-        ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+            sweep.append({**shape, "mismatches": mism, "max_abs_err": err})
+            check(mism == 0, f"{kern.name} {shape}: {mism} mismatches")
+        for site, shape in SITES[kern.name]:
+            args, kw = kern.make_inputs(np.random.default_rng(7), dev, **shape)
+            kernel_ms = time_ms(torch, lambda: kern.wrapper(*args, **kw), 20, 10)
+            plain_ms = time_ms(torch, lambda: kern.plain(*args, **kw),
+                               3 if kern.name == "bitalign_dc_batch" else 20)
+            n_bytes, n_ops = (bitalign_work(args, kw)
+                              if kern.name == "bitalign_dc_batch"
+                              else dc_work(kern.name, args, kw))
+            bytes_ms = n_bytes / memory_bytes_per_s(card) * 1e3
+            ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+            sites.append({
+                "site": site, "shape": shape, "ms": kernel_ms,
+                "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "bytes": n_bytes, "int32_ops": n_ops})
+        main = sites[0]  # the row's numbers: the first call site
         rows[kern.name] = {
             "name": kern.name, "route": "cuda", "source": kern.source,
-            "replaces": kern.replaces, "shape": [b, w, k],
+            "replaces": kern.replaces, "shape": main["shape"],
             "mismatches": sum(r["mismatches"] for r in sweep),
             "max_abs_err": max(r["max_abs_err"] for r in sweep),
-            "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, ops_ms),
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "bytes": n_bytes, "int32_ops": n_ops,
-            # no single PyTorch call computes GenASM-DC
-            "library_ms": None, "sweep": sweep,
+            "ms": main["ms"], "kernel_ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_by": main["bound_by"], "bytes": main["bytes"],
+            "int32_ops": main["int32_ops"],
+            # no single PyTorch call computes GenASM-DC or BitAlign
+            "library_ms": None, "sites": sites, "sweep": sweep,
         }
         emit("kernels_vs_plain", **rows[kern.name])
     return rows
@@ -298,6 +386,159 @@ def serve_phase(torch, ops, sg) -> dict:
             "window_dc_batch_v2": launches["cuda_dc_v2"]["window_dc_batch_v2"]}
 
 
+# ------------------------------------------------------- graph serving ----
+def golden_graph_phase(sg) -> None:
+    want = GOLDEN_GAF.read_bytes()
+    runs = []
+    for online in (False, True):
+        out = OUT / f"golden_graph{'_online' if online else ''}.gaf"
+        args = ["--mode", "graph"] + GOLDEN_ARGS + [
+            "--align-backend", "graph_cuda", "--device", "cuda",
+            "--out", str(out)]
+        if online:
+            args += ["--online", "--rate", "2000"]
+        sg.main(args)
+        same = out.read_bytes() == want
+        runs.append({"backend": "graph_cuda", "online": online,
+                     "identical": same})
+        check(same, f"golden GAF on the card, online={online}")
+    emit("golden_graph", runs=runs)
+
+
+def graph_breakdown(torch, svc) -> dict:
+    """Time one 256-read graph flush stage by stage, synchronising around
+    the BitAlign kernel at both call sites and the graph traceback
+    (measurement only)."""
+    from repro_torch.genomics import encode
+    from repro_torch.graph import backends, mapper, windowed
+
+    cfg = svc.config
+    cap = cfg.bucket_for(150)
+    gidx = svc.index.index
+    ex = mapper.GraphMapExecutor(
+        tile_stride=gidx.tile_stride, cfg=cfg.genasm, p_cap=cap,
+        filter_bits=min(cfg.filter_bits, cap), filter_k=cfg.filter_k,
+        max_candidates=cfg.max_candidates, minimizer_w=cfg.minimizer_w,
+        minimizer_k=cfg.minimizer_k, backend="graph_cuda",
+        prefilter=cfg.graph_prefilter)
+    arr, lens = encode.batch_reads(svc.reads[:cfg.max_batch], cap)
+    ex(gidx.arrays, arr, lens)  # warm-up
+    spent = {"filter_kernel": 0.0, "dc": 0.0, "tb": 0.0}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            return res
+        return run
+
+    saved = (mapper.bitalign_dc_batch, backends.bitalign_dc_batch,
+             windowed.window_tb_graph)
+    mapper.bitalign_dc_batch = timed("filter_kernel", saved[0])
+    backends.bitalign_dc_batch = timed("dc", saved[1])
+    windowed.window_tb_graph = timed("tb", saved[2])
+    try:
+        ex(gidx.arrays, arr, lens)
+    finally:
+        (mapper.bitalign_dc_batch, backends.bitalign_dc_batch,
+         windowed.window_tb_graph) = saved
+    times = {name: t1 - t0 for name, t0, t1, _ in ex.last_times}
+    align_s = times["align"]
+    return {
+        "backend": "graph_cuda", "batch": cfg.max_batch, "bucket_cap": cap,
+        "n_windows": cfg.genasm.n_windows(cap),
+        "dc_rows": ex.last_stats["dc_rows"],
+        "prefilter_s": times["prefilter"], "dc_filter_s": times["dc_filter"],
+        "filter_kernel_s": spent["filter_kernel"], "align_s": align_s,
+        "dc_s": spent["dc"], "tb_s": spent["tb"],
+        "align_other_s": align_s - spent["dc"] - spent["tb"],
+        "dc_share_of_align": spent["dc"] / align_s,
+        "tb_share_of_align": spent["tb"] / align_s,
+    }
+
+
+def graph_serve_phase(torch, ops, sg) -> dict:
+    """The graph deployment on the card; returns the main path's launch
+    counts of the BitAlign kernel."""
+    import dataclasses
+
+    from repro_torch.graph.index import EpochedGraphIndex, GraphArrays
+    from repro_torch.kernels.bitalign import bitalign_dc_batch
+
+    args = sg.parse_args(GRAPH_ARGS + ["--reads", str(FULL_READS),
+                                       "--device", "cuda", "--align-backend",
+                                       "graph_cuda", "--out",
+                                       str(OUT / "full_graph.gaf")])
+    svc = sg.setup(args)  # one graph build serves every run below
+    ops.reset_launch_counts()
+    s = sg.serve(svc, args)
+    counts = ops.launch_counts()
+    sites = {"filter": bitalign_dc_batch.launches_by_store["no_r"],
+             "align": bitalign_dc_batch.launches_by_store["r"]}
+    m = s["metrics"]
+    emit("serve_graph_offline", backend="graph_cuda", index_s=s["index_s"],
+         n_nodes=svc.index.index.n_nodes, n_tiles=svc.index.index.n_tiles,
+         reads=s["reads"], mapped=s["mapped"], position_correct=s["correct"],
+         seconds=s["seconds"], reads_per_s=s["reads_per_s"],
+         prefilter_s=m.get("stage_prefilter_s"),
+         dc_filter_s=m.get("stage_dc_filter_s"),
+         align_s=m.get("stage_align_s"), flushes=m.get("batches_flushed"),
+         tiles_live=m.get("graph_tiles_live"),
+         tiles_pruned=m.get("graph_tiles_pruned"),
+         dc_rows=m.get("graph_dc_rows"), launches=counts,
+         bitalign_launches_by_site=sites)
+    check(s["mapped"] >= 0.9 * s["reads"], "graph: mapped < 90%")
+    check(s["correct"] >= 0.9 * s["reads"], "graph: correct < 90%")
+    check(sites["filter"] > 0, "BitAlign kernel not launched by the filter")
+    check(sites["align"] > 0, "BitAlign kernel not launched by the align loop")
+
+    # online at half the offline rate: p50/p99 measure a flush, not a backlog
+    rate = s["reads_per_s"] / 2
+    online = sg.parse_args(GRAPH_ARGS + [
+        "--reads", str(ONLINE_READS), "--device", "cuda", "--align-backend",
+        "graph_cuda", "--online", "--rate", str(rate), "--max-delay-ms", "20",
+        "--out", str(OUT / "online_graph.gaf")])
+    ops.reset_launch_counts()
+    so = sg.serve(svc, online)
+    mo = so["metrics"]
+    emit("serve_graph_online", backend="graph_cuda", rate_offered=rate,
+         max_delay_ms=online.max_delay_ms,
+         reads=so["reads"], mapped=so["mapped"],
+         position_correct=so["correct"], reads_per_s=so["reads_per_s"],
+         p50_ms=so["p50_ms"], p99_ms=so["p99_ms"],
+         flushes=mo.get("batches_flushed"),
+         batch_occupancy_mean=mo.get("batch_occupancy_mean"),
+         prefilter_s=mo.get("stage_prefilter_s"),
+         dc_filter_s=mo.get("stage_dc_filter_s"),
+         align_s=mo.get("stage_align_s"), launches=ops.launch_counts())
+    check(so["mapped"] >= 0.9 * so["reads"], "online graph: mapped < 90%")
+    check(so["correct"] >= 0.9 * so["reads"], "online graph: correct < 90%")
+
+    # the first 256 reads on the CPU, plain path, on the card's index
+    gidx = svc.index.index
+    cpu_index = EpochedGraphIndex(dataclasses.replace(
+        gidx, arrays=GraphArrays(*(a.cpu() for a in gidx.arrays))))
+    cpu_cfg = dataclasses.replace(svc.config, align_backend="graph_torch")
+    t0 = time.perf_counter()
+    with sg.ServeEngine(cpu_index, cpu_cfg) as engine:
+        cpu_rows = sg.run_offline(engine, svc.reads, list(range(CPU_READS)),
+                                  batch=CPU_READS, lease_s=600.0,
+                                  row_fn=svc.row_fn)
+    gpu_rows = [r for r in s["rows"] if r["gid"] < CPU_READS]
+    same = cpu_rows == gpu_rows
+    emit("cpu_vs_card_graph", reads=CPU_READS, cpu_rows=len(cpu_rows),
+         card_rows=len(gpu_rows), identical=same,
+         cpu_seconds=time.perf_counter() - t0)
+    check(same, "CPU plain graph path and card disagree on the first 256 reads")
+
+    emit("breakdown_graph", **graph_breakdown(torch, svc))
+    return {"bitalign_dc_batch": counts["bitalign_dc_batch"],
+            "bitalign_launches_by_site": sites}
+
+
 def main() -> int:
     try:
         import torch
@@ -338,6 +579,11 @@ def main() -> int:
     rows = kernel_phase(torch, np, ops, dev)
     golden_phase(sg)
     launches = serve_phase(torch, ops, sg)
+    golden_graph_phase(sg)
+    graph = graph_serve_phase(torch, ops, sg)
+    launches["bitalign_dc_batch"] = graph["bitalign_dc_batch"]
+    rows["bitalign_dc_batch"]["launches_by_site"] = \
+        graph["bitalign_launches_by_site"]
     for name, n in launches.items():
         rows[name]["launches"] = n
     emit("done", seconds=time.perf_counter() - t_start)
@@ -345,7 +591,8 @@ def main() -> int:
         {key: r[key] for key in ("name", "route", "source", "replaces",
                                  "launches", "mismatches", "max_abs_err", "ms",
                                  "kernel_ms", "plain_ms", "bound_ms",
-                                 "bound_by", "library_ms")}
+                                 "bound_by", "library_ms", "sites",
+                                 "launches_by_site") if key in r}
         for r in rows.values()]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,8 @@
                             cfg=GenASMConfig(), backend="cuda_dc")
 
 Importing the package registers the built-in backends (``ref``,
-``torch``, ``cuda_dc``, ``cuda_dc_v2``).
+``torch``, ``cuda_dc``, ``cuda_dc_v2``) and the graph backends
+(``graph_torch``, ``graph_cuda``, `repro_torch.graph.backends`).
 """
 from .api import (  # noqa: F401
     Backend,
@@ -16,3 +17,4 @@ from .api import (  # noqa: F401
     resolve_backend,
 )
 from . import backends as _builtin_backends  # noqa: F401  (registers them)
+from repro_torch.graph import backends as _graph_backends  # noqa: F401,E402

@@ -10,6 +10,8 @@ pick one.  Backends registered by `repro_torch.align.backends`:
                   the twin of the reference's ``lax``
   ``cuda_dc``     CUDA GenASM-DC kernel, M/I/D TB store
   ``cuda_dc_v2``  CUDA GenASM-DC kernel, R-only TB store
+  ``graph_torch`` plain PyTorch windowed BitAlign (sequence-to-graph)
+  ``graph_cuda``  CUDA BitAlign kernel in the same window loop
 
 ``backend=None``/``"auto"`` resolves to the ``REPRO_ALIGN_BACKEND``
 environment variable when set, else ``cuda_dc`` on a CUDA device and
@@ -92,7 +94,8 @@ def align_batch(
     ``t_lens`` / ``p_lens`` valid lengths (anchored semi-global, pattern
     fully consumed), all on one device.  Returns a batched
     :class:`AlignResult` on that device — identical distances/CIGARs
-    across the ``torch`` and ``cuda_dc*`` backends.
+    across the ``torch`` and ``cuda_dc*`` backends, and across the two
+    graph backends (which take packed int32 graph text as ``texts``).
     """
     be = resolve_backend(backend, texts.device)
     cap = int(patterns.shape[-1]) if p_cap is None else p_cap

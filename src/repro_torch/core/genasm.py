@@ -51,6 +51,7 @@ class AlignResult(NamedTuple):
     n_ops: torch.Tensor  # [B] int32
     text_consumed: torch.Tensor  # [B] int32
     failed: torch.Tensor  # [B] bool — a window had no alignment within k
+    nodes: torch.Tensor | None = None  # [B, cap] int32 graph node per op (-1 = I)
 
 
 def _pad(buf: torch.Tensor, lens: torch.Tensor, size: int, fill: int) -> torch.Tensor:

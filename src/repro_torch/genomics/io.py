@@ -1,6 +1,6 @@
-"""FASTA/FASTQ parsing and PAF writing (host side, numpy).
+"""FASTA/FASTQ parsing and PAF/GAF writing (host side, numpy).
 
-Copied from `repro.genomics.io` (the linear-workload part).
+Copied from `repro.genomics.io`.
 """
 from __future__ import annotations
 
@@ -99,4 +99,38 @@ def write_paf(path: str | Path, rows: list[dict]) -> None:
     """Minimal PAF writer (the paper's Minimap output format)."""
     _write_rows(path, rows, ("qname", "qlen", "qstart", "qend", "strand",
                              "tname", "tlen", "tstart", "tend", "nmatch",
+                             "alnlen", "mapq"))
+
+
+def gaf_path(nodes) -> tuple[str, int]:
+    """Node-id walk -> (GAF path string, path length in nodes).
+
+    The one-base-per-node graphs name a maximal run of consecutive node
+    ids as one forward-oriented segment ``s<first>-<last>`` (a hop edge
+    starts a new segment), so ``>s5-40>s44-61`` reads as "nodes 5..40,
+    hop, nodes 44..61".  Unmapped/empty paths return ``("*", 0)``.
+    """
+    ids = [int(x) for x in nodes if int(x) >= 0]
+    if not ids:
+        return "*", 0
+    segs = []
+    run_start = prev = ids[0]
+    for x in ids[1:]:
+        if x != prev + 1:
+            segs.append((run_start, prev))
+            run_start = x
+        prev = x
+    segs.append((run_start, prev))
+    return "".join(f">s{a}-{b}" for a, b in segs), len(ids)
+
+
+def write_gaf(path: str | Path, rows: list[dict]) -> None:
+    """Minimal GAF writer (graph alignment format, the SeGraM output).
+
+    Columns: qname qlen qstart qend strand path plen pstart pend nmatch
+    alnlen mapq, plus a ``cg:Z:`` CIGAR tag when present.  Keys outside
+    the column list are ignored, mirroring `write_paf`.
+    """
+    _write_rows(path, rows, ("qname", "qlen", "qstart", "qend", "strand",
+                             "path", "plen", "pstart", "pend", "nmatch",
                              "alnlen", "mapq"))

@@ -5,8 +5,8 @@ Mirrors the paper's methodology (§4.9): PBSIM-style long reads (PacBio CLR
 paper's datasets).  Error composition follows the cited profiles:
 PacBio/ONT are indel-dominated, Illumina substitution-dominated.
 
-Copied from `repro.genomics.simulate` (the linear-workload part), so
-the same seeds draw the same reference and reads.
+Copied from `repro.genomics.simulate`, so the same seeds draw the same
+reference, reads and variants.
 """
 from __future__ import annotations
 
@@ -67,3 +67,42 @@ def simulate_reads(ref: np.ndarray, *, n_reads: int, read_len: int,
     pos = rng.integers(0, max(L - read_len, 1), size=n_reads).astype(np.int32)
     reads = [mutate(ref[p: p + read_len], profile, rng) for p in pos]
     return ReadSet(reads=reads, true_pos=pos)
+
+
+def spell_graph_path(graph, start: int, length: int,
+                     rng: np.random.Generator) -> np.ndarray:
+    """Spell a read along a random successor walk of ``graph`` from
+    ``start`` (ground-truth reads for sequence-to-graph tests)."""
+    seq: list[int] = []
+    cur = int(start)
+    while len(seq) < length and cur < graph.n_nodes:
+        seq.append(int(graph.bases[cur]))
+        bits = int(graph.succ_bits[cur])
+        if not bits:
+            break
+        hops = [h for h in range(32) if (bits >> h) & 1]
+        cur = cur + 1 + int(rng.choice(hops))
+    return np.array(seq, np.int8)
+
+
+def simulate_variants(ref: np.ndarray, *, n_snp=10, n_ins=4, n_del=4, seed=0):
+    """Variant list for genome-graph construction (spread, non-overlapping)."""
+    from repro_torch.core.segram.graph import Variant
+
+    rng = np.random.default_rng(seed)
+    L = len(ref)
+    n_total = n_snp + n_ins + n_del
+    pos = np.sort(rng.choice(np.arange(4, L - 8, 6), size=min(n_total, (L - 12) // 6),
+                             replace=False))
+    variants = []
+    kinds = (["snp"] * n_snp + ["ins"] * n_ins + ["del"] * n_del)[: len(pos)]
+    rng.shuffle(kinds)
+    for p, kind in zip(pos, kinds):
+        if kind == "snp":
+            variants.append(Variant(int(p), "snp", (int((ref[p] + 1) % 4),)))
+        elif kind == "ins":
+            variants.append(Variant(int(p), "ins",
+                                    tuple(int(x) for x in rng.integers(0, 4, 2))))
+        else:
+            variants.append(Variant(int(p), "del", span=2))
+    return variants

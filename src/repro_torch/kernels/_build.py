@@ -37,6 +37,12 @@ SIGNATURES = {
         "genasm_dc_v2": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
         "genasm_dc_max_k": ((), _I),
     },
+    "bitalign": {
+        # (bases, succ_bits, patterns, p_lens, dists, r_out or NULL,
+        #  batch, n, m_bits, k, device, stream)
+        "bitalign_dc": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
+        "bitalign_max_k": ((), _I),
+    },
 }
 
 

@@ -1,14 +1,24 @@
 """The port's kernels in one place: wrappers, plain versions, launch counts.
 
 Each entry of `KERNELS` names a wrapper (CUDA kernel on a CUDA tensor,
-plain PyTorch on a CPU tensor), its plain version, and the Pallas TPU
-kernel it replaces.  `reset_launch_counts` / `launch_counts` read the
-wrappers' ``launches`` counters, which only a kernel launch increments.
+plain PyTorch on a CPU tensor), its plain version, the Pallas TPU kernel
+it replaces, and ``make_inputs(rng, device, **shape) -> (args, kwargs)``,
+which draws seeded inputs at a shape so that ``wrapper(*args, **kwargs)``
+and ``plain(*args, **kwargs)`` can be held against each other.
+`reset_launch_counts` / `launch_counts` read the wrappers' ``launches``
+counters, which only a kernel launch increments.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
+import numpy as np
+import torch
+
+from repro_torch.core.segram.bitalign import bitalign_rows
+from repro_torch.core.segram.graph import HOP_LIMIT
+
+from .bitalign import bitalign_dc_batch
 from .genasm_dc import window_dc_batch, window_dc_batch_plain
 from .genasm_dc_v2 import window_dc_batch_v2, window_dc_batch_v2_plain
 
@@ -19,21 +29,63 @@ class Kernel(NamedTuple):
     plain: Callable
     source: str  # CUDA source, repository path
     replaces: str  # the Pallas kernel function, file:line
+    make_inputs: Callable  # (rng, device, **shape) -> (args, kwargs)
+
+
+def window_inputs(rng: np.random.Generator, device, *, b: int, w: int, k: int):
+    """Random ``[b, w]`` texts and patterns over A, C, G, T and id 4."""
+    t = torch.from_numpy(rng.integers(0, 5, size=(b, w)).astype(np.int8))
+    p = torch.from_numpy(rng.integers(0, 5, size=(b, w)).astype(np.int8))
+    return (t.to(device), p.to(device)), dict(w=w, k=k)
+
+
+# longer-edge probability per hop bit in the served variation graph
+# (`serve_genomics --mode graph`, one variant per 200 bp): 0.75% of its
+# nodes have a hop > 0 edge, spread here over the 15 longer hops
+GRAPH_HOP_RATE = 0.0075 / 15
+
+
+def bitalign_inputs(rng: np.random.Generator, device, *, b: int, n: int,
+                    m_bits: int, k: int, store_r: bool = True,
+                    short: bool = False, hop_rate: float = GRAPH_HOP_RATE):
+    """Random subgraph rows and patterns for `bitalign_dc_batch`.
+
+    Every node chains to its neighbour (hop 0) unless it is a tile's last
+    node; with probability ``hop_rate`` per hop it also has a longer edge
+    (hops past ``n`` included).  Patterns are ACGT with a wildcard tail;
+    with ``short`` the real lengths are drawn below ``m_bits``.
+    """
+    bases = rng.integers(0, 5, size=(b, n)).astype(np.int8)
+    succ = (rng.random((b, n, HOP_LIMIT)) < hop_rate).astype(np.int64)
+    succ[:, :-1, 0] = 1
+    succ_bits = (succ << np.arange(HOP_LIMIT)).sum(-1).astype(np.int32)
+    p_lens = (rng.integers(m_bits // 2, m_bits, size=b) if short
+              else np.full(b, m_bits)).astype(np.int32)
+    pats = rng.integers(0, 4, size=(b, m_bits)).astype(np.int8)
+    pats[np.arange(m_bits)[None, :] >= p_lens[:, None]] = 4
+    args = tuple(torch.from_numpy(x).to(device)
+                 for x in (bases, succ_bits, pats, p_lens))
+    return args, dict(m_bits=m_bits, k=k, store_r=store_r)
 
 
 KERNELS = (
     Kernel("window_dc_batch", window_dc_batch, window_dc_batch_plain,
            "src/repro_torch/kernels/csrc/genasm_dc.cu",
-           "src/repro/kernels/genasm_dc.py:94"),
+           "src/repro/kernels/genasm_dc.py:94", window_inputs),
     Kernel("window_dc_batch_v2", window_dc_batch_v2, window_dc_batch_v2_plain,
            "src/repro_torch/kernels/csrc/genasm_dc.cu",
-           "src/repro/kernels/genasm_dc_v2.py:66"),
+           "src/repro/kernels/genasm_dc_v2.py:66", window_inputs),
+    Kernel("bitalign_dc_batch", bitalign_dc_batch, bitalign_rows,
+           "src/repro_torch/kernels/csrc/bitalign.cu",
+           "src/repro/kernels/bitalign.py:86", bitalign_inputs),
 )
 
 
 def reset_launch_counts() -> None:
     for kern in KERNELS:
         kern.wrapper.launches = 0
+    for key in bitalign_dc_batch.launches_by_store:
+        bitalign_dc_batch.launches_by_store[key] = 0
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,9 +1,12 @@
 """Read-mapping service driver (the paper's workload, end to end).
 
-Port of `repro.launch.serve_genomics` for the linear workload
-(``--mode linear``) on one device.  Both serving modes sit on the same
-`repro_torch.serve` micro-batching engine, so they produce identical
-output for the same read set:
+Port of `repro.launch.serve_genomics` on one device.  ``--mode linear``
+maps against a linear reference and emits PAF; ``--mode graph`` builds a
+variation-graph index (``ref_len // 200`` simulated variants) and emits
+GAF (node path + CIGAR) through the
+``graph_torch``/``graph_cuda`` backends.  Both serving modes sit on the
+same `repro_torch.serve` micro-batching engine, so they produce
+identical output for the same read set:
 
 * **offline** (default) — drain a fixed read set through the lease-based
   work queue; each claimed quantum's reads are submitted to the engine.
@@ -16,10 +19,12 @@ never carries on on the CPU.  Pass ``--device cpu`` to run the plain
 PyTorch versions on the CPU.
 
     python -m repro_torch.launch.serve_genomics --reads 64 --out out.paf
+    python -m repro_torch.launch.serve_genomics --mode graph --out out.gaf
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import NamedTuple
 
@@ -30,6 +35,7 @@ from repro_torch.core import minimizer_index
 from repro_torch.core.genasm import GenASMConfig
 from repro_torch.dist.fault import WorkQueue
 from repro_torch.genomics import io, simulate
+from repro_torch.graph import index as graph_index
 from repro_torch.serve import EngineConfig, ServeEngine, Session, poisson_load
 
 
@@ -47,6 +53,25 @@ def paf_row(gid: int, res, ref_len: int) -> dict:
         "tlen": ref_len, "tstart": res.position,
         "tend": res.position + L, "nmatch": L - res.distance,
         "alnlen": L, "mapq": 60,
+        "cigar": io.cigar_string(res.ops, res.n_ops),
+    }
+
+
+def gaf_row(gid: int, res) -> dict:
+    """GAF row dict for one graph-mapped read (node path + CIGAR).
+
+    ``"tstart"`` (backbone coordinate of the first aligned node) rides
+    along for position accounting — neither writer emits it.
+    """
+    L = res.read_len
+    pstr, plen = io.gaf_path(res.path if res.path is not None else ())
+    return {
+        "gid": gid,
+        "qname": f"read{gid}", "qlen": L, "qstart": 0,
+        "qend": L, "strand": "+", "path": pstr,
+        "plen": plen, "pstart": 0, "pend": plen,
+        "nmatch": L - res.distance, "alnlen": int(res.n_ops), "mapq": 60,
+        "tstart": res.position,
         "cigar": io.cigar_string(res.ops, res.n_ops),
     }
 
@@ -107,15 +132,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--profile", default="illumina",
                     choices=list(simulate.PROFILES))
-    ap.add_argument("--out", default=None, help="PAF output path")
+    ap.add_argument("--out", default=None, help="PAF/GAF output path")
     ap.add_argument("--lease-s", type=float, default=600.0,
                     help="work-queue lease; expired leases are stolen")
-    ap.add_argument("--mode", default="linear", choices=("linear",),
-                    help="linear reference → PAF")
+    ap.add_argument("--mode", default="linear", choices=("linear", "graph"),
+                    help="linear reference → PAF, or variation graph → GAF")
     ap.add_argument("--align-backend", default="auto",
                     help="repro_torch.align backend: auto|ref|torch|cuda_dc|"
-                         "cuda_dc_v2 (auto = cuda_dc on a CUDA device, torch "
-                         "on the CPU; env REPRO_ALIGN_BACKEND overrides auto)")
+                         "cuda_dc_v2|graph_torch|graph_cuda (auto = cuda_dc "
+                         "on a CUDA device, torch on the CPU, graph twins "
+                         "under --mode graph; env REPRO_ALIGN_BACKEND "
+                         "overrides auto)")
     ap.add_argument("--num-shards", type=int, default=1, choices=(1,),
                     help="reference shards (this port serves one)")
     ap.add_argument("--device", default="cuda",
@@ -139,8 +166,37 @@ class Service(NamedTuple):
     ref_len: int
     reads: list  # simulated reads, int8 base ids
     true_pos: np.ndarray
-    index: minimizer_index.EpochedIndex
+    index: object  # EpochedIndex (linear) or EpochedGraphIndex (graph)
     config: EngineConfig
+    index_s: float  # seconds to build the index (graph included)
+
+    def row_fn(self, gid: int, res) -> dict:
+        """The output row of one mapped read: GAF or PAF."""
+        if self.config.workload == "graph":
+            return gaf_row(gid, res)
+        return paf_row(gid, res, self.ref_len)
+
+
+def engine_config(args: argparse.Namespace) -> EngineConfig:
+    """The engine configuration that the arguments ask for."""
+    prof = simulate.PROFILES[args.profile]
+    buckets = tuple(int(b) for b in args.buckets.split(","))
+    need = ((args.read_len + 63) // 64) * 64 + 64  # offline driver's old cap
+    if max(buckets) < need:  # never trim reads the single-cap path held
+        buckets += (need,)
+    return EngineConfig(
+        buckets=buckets, max_batch=args.batch,
+        max_delay_s=args.max_delay_ms / 1e3,
+        genasm=GenASMConfig(),
+        align_backend=args.align_backend,
+        workload=args.mode,
+        filter_k=max(8, int(args.read_len * prof.error_rate * 1.5)),
+        minimizer_w=8, minimizer_k=12)
+
+
+# engine fields that a `serve` run may set apart from its `setup`: nothing
+# in the index or the simulated reads depends on them
+PER_RUN_FIELDS = ("max_batch", "max_delay_s", "align_backend")
 
 
 def setup(args: argparse.Namespace) -> Service:
@@ -151,33 +207,49 @@ def setup(args: argparse.Namespace) -> Service:
     ref = simulate.random_reference(args.ref_len, seed=1)
     rs = simulate.simulate_reads(ref, n_reads=args.reads,
                                  read_len=args.read_len, profile=prof, seed=2)
-    buckets = tuple(int(b) for b in args.buckets.split(","))
-    need = ((args.read_len + 63) // 64) * 64 + 64  # offline driver's old cap
-    if max(buckets) < need:  # never trim reads the single-cap path held
-        buckets += (need,)
-    print(f"indexing reference ({args.ref_len} bp) on {device}...")
-    epi = minimizer_index.build_epoched_index(ref, w=8, k=12, device=device)
-    cfg = EngineConfig(
-        buckets=buckets, max_batch=args.batch,
-        max_delay_s=args.max_delay_ms / 1e3,
-        genasm=GenASMConfig(),
-        align_backend=args.align_backend,
-        filter_k=max(8, int(args.read_len * prof.error_rate * 1.5)),
-        minimizer_w=8, minimizer_k=12)
-    return Service(args.ref_len, rs.reads, rs.true_pos, epi, cfg)
+    cfg = engine_config(args)
+    t0 = time.perf_counter()
+    if args.mode == "graph":
+        n_var = max(args.ref_len // 200, 4)
+        variants = simulate.simulate_variants(
+            ref, n_snp=n_var // 2, n_ins=n_var // 4, n_del=n_var // 4, seed=3)
+        print(f"indexing variation graph ({args.ref_len} bp backbone, "
+              f"{len(variants)} variants) on {device}...")
+        epi = graph_index.build_epoched_graph_index(
+            ref, variants, w=8, k=12, device=device,
+            window=max(cfg.buckets) + 2 * cfg.genasm.w)  # largest t_cap
+    else:
+        print(f"indexing reference ({args.ref_len} bp) on {device}...")
+        epi = minimizer_index.build_epoched_index(ref, w=8, k=12,
+                                                  device=device)
+    index_s = time.perf_counter() - t0
+    return Service(args.ref_len, rs.reads, rs.true_pos, epi, cfg, index_s)
 
 
 def main(argv=None) -> dict:
     """Run the service; returns a summary (rows, throughput, metrics)."""
     args = parse_args(argv)
-    svc = setup(args)
+    return serve(setup(args), args)
 
-    def row_fn(gid, res):
-        return paf_row(gid, res, svc.ref_len)
 
+def serve(svc: Service, args: argparse.Namespace) -> dict:
+    """Serve the first ``args.reads`` reads of ``svc`` offline or online
+    (``args.online``) and write ``args.out``; returns a summary.  One
+    `setup` can serve several runs: the reads of a smaller ``--reads``
+    are the first reads of a larger one.
+
+    The engine runs with the configuration that ``args`` ask for.  They
+    may differ from ``svc``'s in `PER_RUN_FIELDS` only, and raise
+    otherwise."""
+    cfg = engine_config(args)
+    kept = {f: getattr(svc.config, f) for f in PER_RUN_FIELDS}
+    if dataclasses.replace(cfg, **kept) != svc.config:
+        raise ValueError(f"these arguments need their own setup(): a serve "
+                         f"run may change only {PER_RUN_FIELDS}")
+    row_fn = svc.row_fn
     read_ids = np.arange(args.reads)
     rep = None
-    with ServeEngine(svc.index, svc.config) as engine:
+    with ServeEngine(svc.index, cfg) as engine:
         print(f"align backend: {engine.align_backend}")
         t0 = time.time()
         if args.online:
@@ -206,7 +278,9 @@ def main(argv=None) -> dict:
           f"{waste / max(useful + waste, 1):.1%}, "
           f"cache hit rate {hit_rate:.1%}")
     if args.out:
-        io.write_paf(args.out, strip_gids(rows))
+        writer = (io.write_gaf if svc.config.workload == "graph"
+                  else io.write_paf)
+        writer(args.out, strip_gids(rows))
         print(f"wrote {args.out}")
     return {
         "rows": rows, "reads": len(read_ids), "mapped": mapped,
@@ -214,7 +288,7 @@ def main(argv=None) -> dict:
         "reads_per_s": len(read_ids) / dt if dt else 0.0,
         "p50_ms": rep.p50_ms if rep else None,
         "p99_ms": rep.p99_ms if rep else None,
-        "align_backend": backend, "metrics": m,
+        "align_backend": backend, "metrics": m, "index_s": svc.index_s,
     }
 
 

@@ -1,24 +1,25 @@
 """Async micro-batching engine for online read-mapping (DESIGN.md §8).
 
-Port of `repro.serve.engine` for the linear workload on one device.
-Reads arrive continuously via ``submit() -> Future``; the engine admits
-them into per-bucket queues and a background worker flushes a bucket
-when it reaches ``max_batch`` *or* its oldest read has waited
-``max_delay_s``.
+Port of `repro.serve.engine` for one device, serving the linear and the
+graph workload.  Reads arrive continuously via ``submit() -> Future``;
+the engine admits them into per-bucket queues and a background worker
+flushes a bucket when it reaches ``max_batch`` *or* its oldest read has
+waited ``max_delay_s``.
 
 * **Length buckets** — reads are routed to the smallest rung of a
   length-bucket ladder (default 160/320/640/1280) that holds them, so a
   150 bp read does not pay long-read padding; `metrics` tracks the
   padded bases actually paid.
-* **Executor cache** — one `mapper.LinearMapExecutor` per bucket cap;
-  partial flushes are padded up to ``max_batch`` rows so every flush of
-  a bucket has one shape.
+* **Executor cache** — one `mapper.LinearMapExecutor` per bucket cap
+  (linear workload), or one `graph.mapper.GraphMapExecutor` per bucket
+  cap and tile stride (graph workload); partial flushes are padded up to
+  ``max_batch`` rows so every flush of a bucket has one shape.
 
 Results are memoized in an LRU keyed on ``(read digest, index epoch)``
 (`cache.py`); refreshing the reference bumps the epoch.  The offline
 WorkQueue path and the online Poisson path of `launch/serve_genomics.py`
 both sit on the same ``submit()``/``drain()`` surface, which is what
-makes their PAF outputs bit-identical.
+makes their PAF/GAF outputs bit-identical.
 
 The engine runs on the device of its index: the worker thread moves each
 flush there and every kernel wrapper launches on that tensor's device,
@@ -39,6 +40,8 @@ from repro_torch.core import mapper
 from repro_torch.core.genasm import GenASMConfig
 from repro_torch.core.minimizer_index import EpochedIndex, ReferenceIndex
 from repro_torch.genomics import encode
+from repro_torch.graph.index import EpochedGraphIndex, GraphIndex
+from repro_torch.graph.mapper import GraphMapExecutor, graph_backend_name
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 
 from .cache import ResultCache, read_digest
@@ -54,6 +57,14 @@ class EngineConfig:
     `encode.batch_reads`.  ``filter_bits`` is clamped per bucket to the
     bucket cap.  ``align_backend`` names a `repro_torch.align` registry
     entry ("auto" resolves per device at engine construction).
+
+    ``workload`` selects what a bucket executor runs: ``"linear"``
+    (`core/mapper` against an `EpochedIndex`) or ``"graph"``
+    (`graph/mapper` against an `EpochedGraphIndex`, results carrying the
+    node path for GAF); linear backend names resolve to their graph
+    twins under the graph workload (``torch`` → ``graph_torch``,
+    ``cuda_dc`` → ``graph_cuda``).  ``graph_prefilter`` toggles the
+    graph mapper's q-gram tile screen (bitwise-neutral on output).
     """
 
     buckets: tuple[int, ...] = (160, 320, 640, 1280)
@@ -61,6 +72,7 @@ class EngineConfig:
     max_delay_s: float = 0.005
     genasm: GenASMConfig = GenASMConfig()
     align_backend: str = "auto"
+    workload: str = "linear"
     filter_bits: int = 128
     filter_k: int = 12
     max_candidates: int = 4
@@ -69,6 +81,8 @@ class EngineConfig:
     minimizer_w: int = 10
     minimizer_k: int = 15
     cache_capacity: int = 4096  # 0 disables the result cache
+    # graph workload: q-gram tile screen before the BitAlign filter
+    graph_prefilter: bool = True
 
     def __post_init__(self):
         if not self.buckets:
@@ -78,6 +92,9 @@ class EngineConfig:
                              f"got {self.buckets}")
         if self.max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {self.max_batch}")
+        if self.workload not in ("linear", "graph"):
+            raise ValueError(f"workload must be 'linear' or 'graph', got "
+                             f"{self.workload!r}")
         object.__setattr__(self, "buckets", tuple(sorted(set(self.buckets))))
 
     def bucket_for(self, length: int) -> int:
@@ -99,6 +116,7 @@ class ServeResult(NamedTuple):
     bucket_cap: int
     cached: bool
     latency_s: float
+    path: np.ndarray | None = None  # graph workload: node ids per op (-1=I)
 
 
 @dataclass
@@ -112,18 +130,30 @@ class _Request:
 
 
 class ServeEngine:
-    """Admission queue + per-bucket micro-batcher over the linear mapper."""
+    """Admission queue + per-bucket micro-batcher over the linear or the
+    graph mapper."""
 
     def __init__(self, index, config: EngineConfig = EngineConfig(),
                  tracer: Tracer | None = None):
         self.config = config
         self.tracer = tracer if tracer is not None else NULL_TRACER
-        if isinstance(index, ReferenceIndex):
+        if config.workload == "graph":
+            if isinstance(index, GraphIndex):
+                index = EpochedGraphIndex(index)
+            elif not isinstance(index, EpochedGraphIndex):
+                raise TypeError(
+                    f"graph workload needs a GraphIndex/EpochedGraphIndex, "
+                    f"got {type(index).__name__}")
+        elif isinstance(index, ReferenceIndex):
             # a bare ReferenceIndex carries no build params, so the engine
             # assumes it was built with config.minimizer_w/k
             index = EpochedIndex(index, w=config.minimizer_w,
                                  k=config.minimizer_k)
-        elif (index._build_kw["w"], index._build_kw["k"]) != \
+        elif not isinstance(index, EpochedIndex):
+            raise TypeError(
+                f"linear workload needs a ReferenceIndex/EpochedIndex, got "
+                f"{type(index).__name__}")
+        if (index._build_kw["w"], index._build_kw["k"]) != \
                 (config.minimizer_w, config.minimizer_k):
             raise ValueError(
                 f"index built with minimizer w={index._build_kw['w']}/"
@@ -134,12 +164,16 @@ class ServeEngine:
         self.device = index.index.device
         # resolve "auto" once: every flush uses the same concrete backend
         # for the engine's whole lifetime
-        self.align_backend = align_dispatch.resolve_backend(
-            config.align_backend, self.device).name
+        if config.workload == "graph":
+            self.align_backend = graph_backend_name(config.align_backend,
+                                                    self.device)
+        else:
+            self.align_backend = align_dispatch.resolve_backend(
+                config.align_backend, self.device).name
         self.metrics = Metrics()
         self.cache = ResultCache(config.cache_capacity)
         self._queues: dict[int, list[_Request]] = {c: [] for c in config.buckets}
-        self._executors: dict[int, mapper.LinearMapExecutor] = {}
+        self._executors: dict[tuple, object] = {}
         self._cv = threading.Condition()
         self._inflight = 0
         self._closed = False
@@ -166,6 +200,7 @@ class ServeEngine:
         if hit is not None:
             fut.set_result(hit._replace(
                 cached=True, ops=hit.ops.copy(),  # callers own their arrays
+                path=None if hit.path is None else hit.path.copy(),
                 latency_s=time.monotonic() - t0))
             return fut
         req = _Request(read=read, length=len(read),
@@ -227,17 +262,27 @@ class ServeEngine:
         self.close()
 
     # ----------------------------------------------------- executor cache ----
-    def _executor(self, cap: int) -> mapper.LinearMapExecutor:
+    def _executor(self, cap: int, tile_stride: int | None = None):
         """The bucket's mapper executor, built lazily.  The config and the
-        backend are fixed for the engine's lifetime, so the cap is the key."""
-        fn = self._executors.get(cap)
+        backend are fixed for the engine's lifetime, so the key is the cap
+        and, for the graph workload, the index's tile stride *at flush
+        time* — a refresh() that re-tiles the graph gets a fresh
+        executor."""
+        key = (cap, tile_stride)
+        fn = self._executors.get(key)
         if fn is None:
             c = self.config
-            fn = self._executors[cap] = mapper.LinearMapExecutor(
-                cfg=c.genasm, p_cap=cap, filter_bits=min(c.filter_bits, cap),
-                filter_k=c.filter_k, max_candidates=c.max_candidates,
-                minimizer_w=c.minimizer_w, minimizer_k=c.minimizer_k,
-                backend=self.align_backend)
+            kw = dict(cfg=c.genasm, p_cap=cap,
+                      filter_bits=min(c.filter_bits, cap),
+                      filter_k=c.filter_k, max_candidates=c.max_candidates,
+                      minimizer_w=c.minimizer_w, minimizer_k=c.minimizer_k,
+                      backend=self.align_backend)
+            if c.workload == "graph":
+                fn = GraphMapExecutor(tile_stride=tile_stride,
+                                      prefilter=c.graph_prefilter, **kw)
+            else:
+                fn = mapper.LinearMapExecutor(**kw)
+            self._executors[key] = fn
         return fn
 
     @property
@@ -311,13 +356,15 @@ class ServeEngine:
                 self._inflight = 0
                 self._cv.notify_all()
 
-    def _deliver(self, cap: int, reqs: list[_Request], epoch, lens, res) -> None:
+    def _deliver(self, cap: int, reqs: list[_Request], epoch, lens, res,
+                 stats) -> None:
         """Flush tail: metrics, cache, futures."""
         c, tr, m = self.config, self.tracer, self.metrics
         pos = res.position.cpu().numpy()
         dist = res.distance.cpu().numpy()
         ops = res.ops.cpu().numpy()
         n_ops = res.n_ops.cpu().numpy()
+        paths = res.path.cpu().numpy() if c.workload == "graph" else None
 
         m.counter("batches_flushed").inc()
         m.counter(f"batches_flushed_cap{cap}").inc()
@@ -327,6 +374,9 @@ class ServeEngine:
         m.counter("bases_useful").inc(real)
         m.counter("bases_padded_read").inc(len(reqs) * cap - real)
         m.counter("bases_padded_slot").inc((c.max_batch - len(reqs)) * cap)
+        if stats:  # graph executors: tile-screen / DC-occupancy
+            for name, v in stats.items():
+                m.counter(f"graph_{name}").inc(int(v))
 
         with tr.span("emit", bucket_cap=cap):
             done = time.monotonic()
@@ -336,7 +386,8 @@ class ServeEngine:
                     position=int(pos[i]), distance=int(dist[i]),
                     ops=ops[i].copy(), n_ops=int(n_ops[i]),
                     read_len=int(lens[i]), bucket_cap=cap,
-                    cached=False, latency_s=done - r.t_submit)
+                    cached=False, latency_s=done - r.t_submit,
+                    path=None if paths is None else paths[i].copy())
                 self.cache.put(r.read, epoch, out, digest=r.digest)
                 m.histogram("latency_s").observe(out.latency_s)
                 results.append(out)
@@ -348,7 +399,8 @@ class ServeEngine:
     def _execute(self, cap: int, reqs: list[_Request]) -> None:
         c, tr, m = self.config, self.tracer, self.metrics
         t_flush = time.monotonic()
-        with tr.span("flush", bucket_cap=cap, batch=len(reqs)):
+        with tr.span("flush", bucket_cap=cap, batch=len(reqs),
+                     workload=c.workload):
             if tr.enabled:
                 # queue waits overlap the previous flush's compute, so
                 # they export as async spans (outside the slice nesting)
@@ -356,19 +408,25 @@ class ServeEngine:
                     tr.add("enqueue_wait", r.t_submit, t_flush,
                            bucket_cap=cap, async_=True)
             index, epoch = self.index.current()
-            fn = self._executor(cap)
+            if c.workload == "graph":
+                payload = index.arrays
+                fn = self._executor(cap, index.tile_stride)
+            else:
+                payload = index
+                fn = self._executor(cap)
             with tr.span("encode", bucket_cap=cap):
                 arr, lens = encode.batch_reads(
                     [r.read for r in reqs]
                     + [np.zeros(0, np.int8)] * (c.max_batch - len(reqs)),
                     cap)
-            res = fn(index, arr, lens)
+            res = fn(payload, arr, lens)
             # replay the executor's per-stage windows as child spans of
             # this flush, and sum them per stage in the metrics
             for name, t0, t1, attrs in fn.last_times:
                 tr.add(name, t0, t1, bucket_cap=cap, **attrs)
                 m.counter(f"stage_{name}_s").inc(t1 - t0)
-            self._deliver(cap, reqs, epoch, lens, res)
+            self._deliver(cap, reqs, epoch, lens, res,
+                          getattr(fn, "last_stats", None))
         with self._cv:
             self._inflight -= len(reqs)
             self._cv.notify_all()

@@ -2,21 +2,40 @@
 
 A CUDA kernel has no CPU mode, so these cases skip without a card (the
 CPU suite holds the plain versions against the JAX reference in
-tests/test_torch_dc.py).  The file imports no JAX, so it also runs on a
-machine with a GPU and no JAX:
+tests/test_torch_dc.py and tests/test_torch_graph_align.py).  The file
+imports no JAX, so it also runs on a machine with a GPU and no JAX:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
 
 Comparisons are exact (integer bit patterns).
 """
+import zlib
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels import ops
 
-SHAPES = [(256, 64, 24), (16, 64, 8), (16, 96, 16), (16, 128, 24), (5, 64, 24),
-          (16, 32, 0), (130, 64, 32)]
+WINDOW_SHAPES = [dict(b=b, w=w, k=k) for b, w, k in (
+    (256, 64, 24), (16, 64, 8), (16, 96, 16), (16, 128, 24), (5, 64, 24),
+    (16, 32, 0), (130, 64, 32))]
+# the graph main path's two call sites (filter: R off; align: R on), a
+# ragged batch with short patterns and dense hops (hops past N included),
+# and the kernel's widest rows
+BITALIGN_SHAPES = [
+    dict(b=1024, n=1536, m_bits=128, k=11, store_r=False),
+    dict(b=256, n=64, m_bits=64, k=24, store_r=True),
+    dict(b=37, n=200, m_bits=128, k=11, store_r=True, short=True,
+         hop_rate=0.2),
+    dict(b=5, n=64, m_bits=96, k=16, store_r=False, short=True, hop_rate=0.5),
+    dict(b=40, n=100, m_bits=128, k=32, store_r=True, short=True,
+         hop_rate=0.05),
+    dict(b=8, n=70, m_bits=32, k=0, store_r=True),
+]
+CASES = [(kern, shape) for kern in ops.KERNELS
+         for shape in (BITALIGN_SHAPES if kern.name == "bitalign_dc_batch"
+                       else WINDOW_SHAPES)]
 
 
 @pytest.fixture
@@ -26,28 +45,44 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+def _outputs_equal(got, want) -> bool:
+    return all((g is None and w is None) or torch.equal(g, w)
+               for g, w in zip(got, want))
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,w,k", SHAPES)
-@pytest.mark.parametrize("kern", ops.KERNELS, ids=lambda kern: kern.name)
-def test_cuda_kernel_matches_plain(cuda_device, kern, b, w, k):
-    rng = np.random.default_rng(b * 1000 + w + k)
-    texts = torch.from_numpy(rng.integers(0, 5, size=(b, w)).astype(np.int8))
-    pats = torch.from_numpy(rng.integers(0, 5, size=(b, w)).astype(np.int8))
-    t, p = texts.to(cuda_device), pats.to(cuda_device)
+@pytest.mark.parametrize(
+    "kern,shape", CASES,
+    ids=[f"{kern.name}-" + "-".join(f"{k}{v}" for k, v in shape.items())
+         for kern, shape in CASES])
+def test_cuda_kernel_matches_plain(cuda_device, kern, shape):
+    rng = np.random.default_rng(zlib.crc32(repr(sorted(shape.items())).encode()))
+    args, kw = kern.make_inputs(rng, cuda_device, **shape)
     launches = kern.wrapper.launches
-    d, s = kern.wrapper(t, p, w=w, k=k)
+    got = kern.wrapper(*args, **kw)
     torch.cuda.synchronize()
     assert kern.wrapper.launches == launches + 1
-    d_ref, s_ref = kern.plain(t, p, w=w, k=k)
-    assert torch.equal(d, d_ref)
-    assert torch.equal(s, s_ref)
+    assert _outputs_equal(got, kern.plain(*args, **kw))
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kern", ops.KERNELS, ids=lambda kern: kern.name)
+@pytest.mark.parametrize("kern", ops.KERNELS[:2], ids=lambda kern: kern.name)
 def test_cuda_kernel_rejects_bad_input(cuda_device, kern):
     t = torch.zeros((4, 64), dtype=torch.int8, device=cuda_device)
     with pytest.raises(ValueError):
         kern.wrapper(t, t, w=64, k=33)  # beyond the kernel's register rows
     with pytest.raises(TypeError):
         kern.wrapper(t.int(), t.int(), w=64, k=8)
+
+
+@pytest.mark.cuda
+def test_bitalign_rejects_bad_input(cuda_device):
+    (bases, succ, pats, p_lens), _ = ops.bitalign_inputs(
+        np.random.default_rng(0), cuda_device, b=4, n=32, m_bits=64, k=8)
+    kern = ops.KERNELS[2].wrapper
+    with pytest.raises(ValueError):
+        kern(bases, succ, pats, p_lens, m_bits=64, k=33)
+    with pytest.raises(ValueError):
+        kern(bases, succ, pats, p_lens, m_bits=160, k=8)
+    with pytest.raises(TypeError):
+        kern(bases, succ.long(), pats, p_lens, m_bits=64, k=8)
