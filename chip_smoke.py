@@ -17,7 +17,9 @@ and sequence-to-graph read-mapping deployments end to end through
                  same work.  GenASM-DC at B=256, w=64, k=24; BitAlign at
                  the graph filter's B=1,024, N=1,536, m_bits=128, k=11
                  (R off and on) and the graph align loop's B=256, N=64,
-                 m_bits=64, k=24
+                 m_bits=64, k=24; Myers at the edit-distance sites (B=1,024,
+                 n=1,192, m_bits=1,024, semiglobal and global; B=256,
+                 n=5,192, m_bits=5,056) and once at L = 100,000 (B=8)
   4. golden    — tests/data/serve_golden.paf byte for byte with cuda_dc and
                  cuda_dc_v2, offline and online
   5. serve     — a 4,641,652 bp reference (the length of E. coli K-12
@@ -36,6 +38,21 @@ and sequence-to-graph read-mapping deployments end to end through
                  (same rows), >= 90% mapped and position-correct, the
                  BitAlign kernel launched at both call sites (filter and
                  align), and one flush's breakdown
+  8. edit_distance — use case 3 at the edit-distance benchmark's three
+                 settings (L = 1,000 at 95% and 80% similarity, 1,024
+                 pairs; L = 5,000 at 95%, 256 pairs): the Myers kernel
+                 (semiglobal) and GenASM's windowed distance (cuda_dc) on
+                 the card, both equal to the CPU plain path on the first 16
+                 pairs, global Myers equal to the Levenshtein oracle on 4
+                 pairs, every mapped pair inside the demo's band of Myers
+  9. prealign_filter — use case 2 at the filter benchmark's shapes (read
+                 100, k = 5; read 250, k = 15; 256 pairs each): accept and
+                 dist identical to the CPU, false-accept and false-reject
+                 rates against the prefix-Levenshtein oracle
+ 10. segram    — direct SeGraM mapping: the graph phase's 4,641,652 bp
+                 reference and 23,208 variants, 256 Illumina 100 bp reads
+                 mapped on the card, identical to the CPU on the first 32
+                 reads, >= 90% mapped and position-correct
 
 Each phase prints one JSON line.  The kernels line precedes the card's
 nvidia-smi line, and the last line is ``{"ok": true, "device": {...}}``.
@@ -83,7 +100,18 @@ SITES = {
                                store_r=True)),
         ("align", dict(b=256, n=64, m_bits=64, k=24, store_r=True)),
     ],
+    # the edit-distance benchmark's buffers: text L + 192, pattern cut to
+    # ((L + 63) // 64) * 64 bits
+    "myers_distance_batch": [
+        ("edit_distance_1k", dict(b=1024, n=1192, m_bits=1024,
+                                  mode="semiglobal")),
+        ("edit_distance_5k", dict(b=256, n=5192, m_bits=5056,
+                                  mode="semiglobal")),
+        ("global_1k", dict(b=1024, n=1192, m_bits=1024, mode="global")),
+    ],
 }
+# one long pair set, L = 100,000: held against the plain version once
+MYERS_LONG = dict(b=8, n=100_192, m_bits=100_032, mode="semiglobal")
 SWEEPS = {
     "window_dc_batch": WINDOW_SWEEP,
     "window_dc_batch_v2": WINDOW_SWEEP,
@@ -101,7 +129,23 @@ SWEEPS = {
         dict(b=1024, n=1536, m_bits=128, k=11, store_r=False,
              hop_rate=0.02),
     ],
+    # m_lens drawn in [0, m_bits] with 0, 1 and m_bits always present, both
+    # modes, ragged batches, a partial last 32-word segment, then L = 100 kbp
+    "myers_distance_batch": [
+        *(dict(b=37, n=150, m_bits=m_bits, mode=mode, short=True)
+          for m_bits in (32, 64, 96, 128) for mode in ("global", "semiglobal")),
+        dict(b=5, n=300, m_bits=64, mode="semiglobal", short=True),
+        dict(b=130, n=200, m_bits=1056, mode="global", short=True),
+        MYERS_LONG,
+    ],
 }
+ED_SETTINGS = ((1000, 0.95, 1024), (1000, 0.80, 1024), (5000, 0.95, 256))
+ED_CPU_PAIRS, ED_ORACLE_PAIRS = 16, 4
+FILTER_SETTINGS = ((100, 5), (250, 15))
+FILTER_PAIRS = 256
+SEGRAM_READS, SEGRAM_CPU_READS = 256, 32
+SEGRAM_KW = dict(m_bits=128, k=16, win_len=192, max_candidates=4,
+                 minimizer_w=8, minimizer_k=12)
 
 
 def emit(phase: str, **fields) -> None:
@@ -155,6 +199,42 @@ def bitalign_work(args, kw) -> tuple[int, int]:
     return (b * n * (1 + 4 + 4) + b * (m_bits + 4) + r_bytes,
             b * n * nw * (5 + 14 * k) + hops * (k + 1) * nw)
 
+
+def myers_work(args, kw) -> tuple[int, int]:
+    """(bytes, int32 operations) one Myers call must move and do.
+
+    Bytes: texts, patterns and m_lens read once, distances written once.
+    Operations, exactly B·n·(23·nw + 7): per text char and word 23 -- Xv
+    (1), Eq & Pv (1), the add with carry (add, compare, add the carry in,
+    compare, OR: 5), ^ Pv and | Eq (2), Ph = Mv | ~(Xh | Pv) (3), Mh (1),
+    the shifts of Ph and Mh with their incoming bits (3 each), Pv =
+    Mh | ~(Xv | Ph) (3) and Mv (1); per text char 7 -- the Ph and Mh
+    score bits (shift and AND, 2 each), the score update (2) and the
+    running minimum (1).
+    """
+    texts, _, _ = args
+    b, n = texts.shape
+    m_bits = kw["m_bits"]
+    return b * (n + m_bits + 4 + 4), b * n * (23 * (m_bits // 32) + 7)
+
+
+def work(name: str, args, kw) -> tuple[int, int]:
+    """(bytes, int32 operations) of one call of kernel ``name``."""
+    if name == "bitalign_dc_batch":
+        return bitalign_work(args, kw)
+    if name == "myers_distance_batch":
+        return myers_work(args, kw)
+    return dc_work(name, args, kw)
+
+
+def bound(card: str, n_bytes: int, n_ops: int) -> dict:
+    """The card's least time for the work: the larger of bytes over the
+    memory rate and int32 operations over the peak integer rate."""
+    bytes_ms = n_bytes / memory_bytes_per_s(card) * 1e3
+    ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": n_bytes, "int32_ops": n_ops}
 
 
 def memory_bytes_per_s(card: str) -> float:
@@ -212,21 +292,15 @@ def kernel_phase(torch, np, ops, dev) -> dict:
             torch.cuda.synchronize()
             sweep.append({**shape, "mismatches": mism, "max_abs_err": err})
             check(mism == 0, f"{kern.name} {shape}: {mism} mismatches")
+        slow_plain = kern.name in ("bitalign_dc_batch", "myers_distance_batch")
         for site, shape in SITES[kern.name]:
             args, kw = kern.make_inputs(np.random.default_rng(7), dev, **shape)
             kernel_ms = time_ms(torch, lambda: kern.wrapper(*args, **kw), 20, 10)
             plain_ms = time_ms(torch, lambda: kern.plain(*args, **kw),
-                               3 if kern.name == "bitalign_dc_batch" else 20)
-            n_bytes, n_ops = (bitalign_work(args, kw)
-                              if kern.name == "bitalign_dc_batch"
-                              else dc_work(kern.name, args, kw))
-            bytes_ms = n_bytes / memory_bytes_per_s(card) * 1e3
-            ops_ms = n_ops / INT32_OPS_PER_S * 1e3
-            sites.append({
-                "site": site, "shape": shape, "ms": kernel_ms,
-                "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "bytes": n_bytes, "int32_ops": n_ops})
+                               3 if slow_plain else 20)
+            sites.append({"site": site, "shape": shape, "ms": kernel_ms,
+                          "plain_ms": plain_ms,
+                          **bound(card, *work(kern.name, args, kw))})
         main = sites[0]  # the row's numbers: the first call site
         rows[kern.name] = {
             "name": kern.name, "route": "cuda", "source": kern.source,
@@ -237,9 +311,16 @@ def kernel_phase(torch, np, ops, dev) -> dict:
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "bytes": main["bytes"],
             "int32_ops": main["int32_ops"],
-            # no single PyTorch call computes GenASM-DC or BitAlign
+            # no single PyTorch call computes GenASM-DC, BitAlign or Myers
             "library_ms": None, "sites": sites, "sweep": sweep,
         }
+        if kern.name == "myers_distance_batch":  # the kernel alone, 3 trials
+            args, kw = kern.make_inputs(np.random.default_rng(7), dev,
+                                        **MYERS_LONG)
+            rows[kern.name]["long"] = {
+                "shape": MYERS_LONG, "trials": 3,
+                "ms": time_ms(torch, lambda: kern.wrapper(*args, **kw), 3),
+                **bound(card, *work(kern.name, args, kw))}
         emit("kernels_vs_plain", **rows[kern.name])
     return rows
 
@@ -539,6 +620,187 @@ def graph_serve_phase(torch, ops, sg) -> dict:
             "bitalign_launches_by_site": sites}
 
 
+# ------------------------------------------------- use cases 2 and 3 ----
+def wall_s(torch, fn, trials: int = 1):
+    """(result, median host seconds) of ``fn()`` ended by a synchronise;
+    with ``trials`` > 1, after one warm-up call."""
+    if trials > 1:
+        fn()
+    times, res = [], None
+    for _ in range(trials):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return res, statistics.median(times)
+
+
+def edit_pairs(np, simulate, length: int, similarity: float, batch: int):
+    """Pairs as `benchmarks/edit_distance.py` makes them: a random
+    sequence (pattern, buffer L + 64) and its mutated copy (text, buffer
+    L + 192), seed 7."""
+    rng = np.random.default_rng(7)
+    prof = simulate.ErrorProfile("x", 1 - similarity, 0.4, 0.3, 0.3)
+    p_cap = length + 64
+    a = np.full((batch, p_cap), 4, np.int8)
+    b = np.full((batch, p_cap + 128), 4, np.int8)
+    a_lens = np.zeros(batch, np.int32)
+    b_lens = np.zeros(batch, np.int32)
+    for i in range(batch):
+        s = rng.integers(0, 4, size=length).astype(np.int8)
+        t = simulate.mutate(s, prof, rng)
+        a[i, :len(s)] = s
+        b[i, :len(t)] = t[:b.shape[1]]
+        a_lens[i], b_lens[i] = len(s), min(len(t), b.shape[1])
+    return a, b, a_lens, b_lens
+
+
+def edit_distance_phase(torch, np, ops, dev) -> int:
+    """Use case 3 on the card; returns the Myers kernel's launches."""
+    from repro_torch.core import edit_distance as ed
+    from repro_torch.core import oracle
+    from repro_torch.core.genasm import GenASMConfig
+    from repro_torch.genomics import simulate
+
+    cfg = GenASMConfig(w=64, o=24, k=24)
+    card = card_line()
+    myers_launches = 0
+    for length, similarity, batch in ED_SETTINGS:
+        a, b, al, bl = edit_pairs(np, simulate, length, similarity, batch)
+        m_bits = ((length + 63) // 64) * 64
+        pats = np.ascontiguousarray(a[:, :m_bits])
+        on = [torch.from_numpy(x).to(dev) for x in (a, b, al, bl, pats)]
+        ops.reset_launch_counts()
+        dm, myers_s = wall_s(torch, lambda: ed.myers_distance_batch(
+            on[1], on[4], on[2], m_bits=m_bits, mode="semiglobal"), 3)
+        d, genasm_s = wall_s(torch, lambda: ed.genasm_distance_batch(
+            on[0], on[1], on[2], on[3], cfg=cfg))
+        counts = ops.launch_counts()
+        myers_launches += counts["myers_distance_batch"]
+        dm, d = dm.cpu().numpy(), d.cpu().numpy()
+
+        c = min(ED_CPU_PAIRS, batch)
+        cpu = [torch.from_numpy(x[:c]) for x in (a, b, al, bl, pats)]
+        dm_cpu = ed.myers_distance_batch(cpu[1], cpu[4], cpu[2], m_bits=m_bits,
+                                         mode="semiglobal").numpy()
+        d_cpu = ed.genasm_distance_batch(*cpu[:4], cfg=cfg).numpy()
+        same = bool((dm_cpu == dm[:c]).all() and (d_cpu == d[:c]).all())
+        ok = d >= 0
+        in_band = (dm[ok] <= d[ok]) & (d[ok] <= dm[ok] + np.maximum(5, dm[ok] // 20))
+        oracle_ok = None
+        if length == 1000 and similarity == 0.95:
+            got, want = [], []
+            for i in range(ED_ORACLE_PAIRS):
+                t = on[1][i:i + 1, :int(bl[i])]
+                got.append(int(ed.myers_distance_batch(
+                    t, on[4][i:i + 1], on[2][i:i + 1], m_bits=m_bits,
+                    mode="global")[0]))
+                want.append(oracle.levenshtein(a[i, :al[i]], b[i, :bl[i]]))
+            oracle_ok = got == want
+            check(oracle_ok, f"global Myers {got} != Levenshtein {want}")
+        emit("edit_distance", length=length, similarity=similarity,
+             pairs=batch, m_bits=m_bits, myers_s=myers_s,
+             myers_pairs_per_s=batch / myers_s, genasm_s=genasm_s,
+             genasm_pairs_per_s=batch / genasm_s,
+             myers_mean=float(dm.mean()), genasm_mean=float(d[ok].mean()),
+             genasm_failed=int((~ok).sum()), in_band=int(in_band.sum()),
+             cpu_pairs=c, cpu_identical=same, global_oracle_ok=oracle_ok,
+             myers_launches=counts["myers_distance_batch"],
+             genasm_dc_launches=counts["window_dc_batch"], card=card)
+        check(same, f"L={length}: card and CPU distances differ")
+        check(bool(in_band.all()), f"L={length}: windowed distance outside "
+              f"the band of Myers on {int((~in_band).sum())} pairs")
+        check(counts["myers_distance_batch"] > 0, "Myers kernel not launched")
+        check(counts["window_dc_batch"] > 0, "GenASM-DC kernel not launched")
+    return myers_launches
+
+
+def prealign_filter_phase(torch, np, dev) -> None:
+    """Use case 2 at `benchmarks/prealign_filter.py`'s shapes: even pairs
+    a read and its mutated copy, odd pairs unrelated (seed 5)."""
+    from repro_torch.core import filter as gfilter
+    from repro_torch.core import oracle
+    from repro_torch.genomics import simulate
+
+    card = card_line()
+    for read_len, k in FILTER_SETTINGS:
+        rng = np.random.default_rng(5)
+        m_bits = 128 if read_len <= 100 else 256
+        n = m_bits + 2 * k + 16
+        texts = np.full((FILTER_PAIRS, n), 4, np.int8)
+        reads = np.full((FILTER_PAIRS, m_bits), 4, np.int8)
+        truth = np.zeros(FILTER_PAIRS, bool)
+        for i in range(FILTER_PAIRS):
+            r = rng.integers(0, 4, size=read_len).astype(np.int8)
+            if i % 2 == 0:
+                t = simulate.mutate(r, simulate.ErrorProfile(
+                    "x", k / read_len / 2, .5, .25, .25), rng)
+            else:
+                t = rng.integers(0, 4, size=read_len + 2 * k).astype(np.int8)
+            texts[i, :min(len(t), n)] = t[:n]
+            reads[i, :read_len] = r
+            truth[i] = oracle.levenshtein_prefix(r, t) <= k
+        tt, rr = torch.from_numpy(texts), torch.from_numpy(reads)
+        (acc, dist), sec = wall_s(torch, lambda: gfilter.filter_candidates(
+            tt.to(dev), rr.to(dev), None, m_bits=m_bits, k=k), 3)
+        acc_c, dist_c = gfilter.filter_candidates(tt, rr, None, m_bits=m_bits,
+                                                  k=k)
+        acc, dist = acc.cpu(), dist.cpu()
+        same = bool(torch.equal(acc, acc_c) and torch.equal(dist, dist_c))
+        a = acc.numpy()
+        emit("prealign_filter", read_len=read_len, k=k, m_bits=m_bits,
+             pairs=FILTER_PAIRS, seconds=sec, pairs_per_s=FILTER_PAIRS / sec,
+             accepted=int(a.sum()), true_within_k=int(truth.sum()),
+             false_accept=float((a & ~truth).sum() / max((~truth).sum(), 1)),
+             false_reject=float((~a & truth).sum() / max(truth.sum(), 1)),
+             cpu_identical=same, card=card)
+        check(same, f"filter read {read_len}: card and CPU differ")
+
+
+def segram_phase(torch, np, dev) -> None:
+    """Direct SeGraM mapping of 256 reads on the graph phase's graph."""
+    from repro_torch.core.segram import graph as sgraph
+    from repro_torch.core.segram import segram
+    from repro_torch.genomics import encode, simulate
+
+    ref_len = int(FULL_ARGS[FULL_ARGS.index("--ref-len") + 1])
+    t0 = time.perf_counter()
+    ref = simulate.random_reference(ref_len, seed=1)
+    n_var = ref_len // 200  # as serve_genomics --mode graph: seed 3
+    variants = simulate.simulate_variants(
+        ref, n_snp=n_var // 2, n_ins=n_var // 4, n_del=n_var // 4, seed=3)
+    g = sgraph.build_graph(ref, variants)
+    idx = segram.preprocess(ref, g, w=8, k=12, device=dev)
+    torch.cuda.synchronize()
+    index_s = time.perf_counter() - t0
+    rs = simulate.simulate_reads(ref, n_reads=SEGRAM_READS, read_len=100,
+                                 profile=simulate.ILLUMINA, seed=2)
+    reads, lens = encode.batch_reads(rs.reads, SEGRAM_KW["m_bits"])
+    rt, lt = torch.from_numpy(reads), torch.from_numpy(lens)
+    out, sec = wall_s(torch, lambda: segram.map_batch(
+        idx, rt.to(dev), lt.to(dev), **SEGRAM_KW), 3)
+    out = {key: v.cpu() for key, v in out.items()}
+    c = SEGRAM_CPU_READS
+    cpu_idx = segram.SeGraMIndex(*(x.cpu() for x in idx))
+    t1 = time.perf_counter()
+    cpu = segram.map_batch(cpu_idx, rt[:c], lt[:c], **SEGRAM_KW)
+    cpu_s = time.perf_counter() - t1
+    same = all(torch.equal(cpu[key], out[key][:c]) for key in cpu)
+    mapped = ~out["failed"].numpy()
+    want = g.node_of_backbone[rs.true_pos]
+    correct = mapped & (np.abs(out["node"].numpy() - want) <= 16)
+    emit("segram", ref_len=ref_len, variants=len(variants), n_nodes=g.n_nodes,
+         index_s=index_s, reads=SEGRAM_READS, mapped=int(mapped.sum()),
+         position_correct=int(correct.sum()), seconds=sec,
+         reads_per_s=SEGRAM_READS / sec, cpu_reads=c, cpu_seconds=cpu_s,
+         cpu_identical=same, **{k: v for k, v in SEGRAM_KW.items()},
+         card=card_line())
+    check(same, "SeGraM: card and CPU differ on the first 32 reads")
+    check(mapped.sum() >= 0.9 * SEGRAM_READS, "SeGraM: mapped < 90%")
+    check(correct.sum() >= 0.9 * SEGRAM_READS, "SeGraM: correct < 90%")
+
+
 def main() -> int:
     try:
         import torch
@@ -584,6 +846,9 @@ def main() -> int:
     launches["bitalign_dc_batch"] = graph["bitalign_dc_batch"]
     rows["bitalign_dc_batch"]["launches_by_site"] = \
         graph["bitalign_launches_by_site"]
+    launches["myers_distance_batch"] = edit_distance_phase(torch, np, ops, dev)
+    prealign_filter_phase(torch, np, dev)
+    segram_phase(torch, np, dev)
     for name, n in launches.items():
         rows[name]["launches"] = n
     emit("done", seconds=time.perf_counter() - t_start)
@@ -592,7 +857,7 @@ def main() -> int:
                                  "launches", "mismatches", "max_abs_err", "ms",
                                  "kernel_ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms", "sites",
-                                 "launches_by_site") if key in r}
+                                 "launches_by_site", "long") if key in r}
         for r in rows.values()]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,1 +1,3 @@
-"""GenASM core: bitvectors, DC, TB, the windowed aligner, seeding, mapper."""
+"""GenASM core: bitvectors, DC, TB, the windowed aligner, seeding, mapper,
+and the use cases beside them (edit distance with Myers, the pre-alignment
+filter, DP baselines and oracles)."""

@@ -1,7 +1,16 @@
-"""The q-gram tile screen in front of the exact pre-alignment filter.
+"""Use case 2: pre-alignment filtering (paper §4.8, §4.10.3), and the
+q-gram tile screen in front of it.
 
-Port of the q-gram primitives of `repro.core.filter` (paper §4.8's
-cheap-screen-before-exact-filter cascade): per-tile Bloom filters over
+Port of `repro.core.filter`.  GenASM-DC (no traceback) computes the
+*exact* semi-global distance of a short read against each candidate
+region (`filter_candidates`, on the device of its inputs with the plain
+`bitap_search`: no Pallas kernel computes it in the reference either);
+candidates above the edit threshold are rejected before the expensive
+alignment step.  Because the distance is exact, the false-accept rate
+is ~0 by construction — the paper's headline accuracy result.
+
+The q-gram primitives serve the cheap-screen-before-exact-filter
+cascade of the graph mapper: per-tile Bloom filters over
 the tile's q-grams let the graph mapper reject candidate tiles that
 cannot contain a ≤k mapping with one vectorized count — no BitAlign
 launch at all.  Soundness comes from the q-gram lemma: a pattern of
@@ -18,9 +27,11 @@ Conventions: q-gram codes and hashes are int64 holding uint32 values
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from .bitvector import WORD_BITS, to_i32
+from .bitvector import SENTINEL, WILDCARD, WORD_BITS, to_i32
+from .genasm_dc import bitap_search
 from .segram.minimizer import INVALID, hash32, kmer_codes
 
 QGRAM_Q = 8  # q-gram width of the tile screen (2-bit packed, 16 bits)
@@ -93,3 +104,32 @@ def qgram_min_hits(n_pos, k: int, slack, *, q: int = QGRAM_Q):
     the Bloom filter).  Non-positive bounds mean "cannot prune".
     """
     return n_pos - q * k - slack
+
+
+def filter_candidates(texts: torch.Tensor, reads: torch.Tensor, read_lens=None,
+                      *, m_bits: int, k: int):
+    """Batch pre-alignment filter.
+
+    ``texts``: ``[B, n]`` int8 candidate regions (sentinel-padded by the
+    caller to at least read_len + k + pad).  ``reads``: ``[B, m_bits]``
+    int8 wildcard-padded reads (``read_lens`` is unused, as in the
+    reference: the wildcard tail matches everything).  Returns ``(accept
+    [B] bool, dist [B] int32)`` where dist is the exact semi-global
+    distance (``k+1`` ⇒ rejected).
+    """
+    dist = bitap_search(texts, reads, m_bits=m_bits, k=k).min(-1).values
+    return dist <= k, dist
+
+
+def prepare_read(read, m_bits: int) -> np.ndarray:
+    """Host-side helper: wildcard-pad a 1-D numpy read to ``m_bits``."""
+    buf = np.full((m_bits,), WILDCARD, np.int8)
+    buf[: len(read)] = read
+    return buf
+
+
+def prepare_region(region, n: int) -> np.ndarray:
+    """Host-side helper: sentinel-pad a candidate region to ``n``."""
+    buf = np.full((n,), SENTINEL, np.int8)
+    buf[: len(region)] = region
+    return buf

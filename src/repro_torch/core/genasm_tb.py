@@ -156,3 +156,22 @@ def cigar_counts(ops: torch.Tensor, n_ops: torch.Tensor) -> torch.Tensor:
     valid = idx < n_ops.unsqueeze(-1)
     return torch.stack([(valid & (ops == code)).sum(-1)
                         for code in (OP_M, OP_X, OP_I, OP_D)], dim=-1)
+
+
+def cigar_score(ops: torch.Tensor, n_ops: torch.Tensor, *, match: int = 2,
+                subs: int = -4, gap_open: int = -4,
+                gap_extend: int = -2) -> torch.Tensor:
+    """Affine-gap score of packed CIGARs (Minimap2-style defaults).
+
+    ``ops [..., S]``, ``n_ops [...]``; a gap of length L costs open +
+    L·extend.  Returns ``[...]`` int32.
+    """
+    valid = torch.arange(ops.shape[-1], device=ops.device) < n_ops.unsqueeze(-1)
+    prev = torch.cat([torch.full_like(ops[..., :1], OP_PAD), ops[..., :-1]], -1)
+    is_gap = (ops == OP_I) | (ops == OP_D)
+    opens = is_gap & (ops != prev)
+    s = (match * (valid & (ops == OP_M)).sum(-1)
+         + subs * (valid & (ops == OP_X)).sum(-1)
+         + gap_open * (valid & opens).sum(-1)
+         + gap_extend * (valid & is_gap).sum(-1))
+    return s.to(torch.int32)

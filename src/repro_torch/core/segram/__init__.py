@@ -1,1 +1,1 @@
-"""SeGraM building blocks used by the linear mapper (minimizer seeding)."""
+"""SeGraM: the genome graph, minimizer seeding, BitAlign and the direct mapper."""

@@ -43,6 +43,12 @@ SIGNATURES = {
         "bitalign_dc": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
         "bitalign_max_k": ((), _I),
     },
+    "myers": {
+        # (texts, patterns, m_lens, out, batch, n, m_bits, global_mode,
+        #  device, stream)
+        "myers_distance": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
+        "myers_max_m_bits": ((_I,), _I),
+    },
 }
 
 

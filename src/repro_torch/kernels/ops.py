@@ -18,9 +18,12 @@ import torch
 from repro_torch.core.segram.bitalign import bitalign_rows
 from repro_torch.core.segram.graph import HOP_LIMIT
 
+from repro_torch.core.myers import myers_distance_batch as myers_plain
+
 from .bitalign import bitalign_dc_batch
 from .genasm_dc import window_dc_batch, window_dc_batch_plain
 from .genasm_dc_v2 import window_dc_batch_v2, window_dc_batch_v2_plain
+from .myers import myers_distance_batch
 
 
 class Kernel(NamedTuple):
@@ -68,6 +71,29 @@ def bitalign_inputs(rng: np.random.Generator, device, *, b: int, n: int,
     return args, dict(m_bits=m_bits, k=k, store_r=store_r)
 
 
+def myers_inputs(rng: np.random.Generator, device, *, b: int, n: int,
+                 m_bits: int, mode: str = "semiglobal", short: bool = False):
+    """Random pairs for `myers_distance_batch`: ACGT patterns and texts
+    that copy them with 10% substitutions (texts past the pattern are
+    random), 1% sentinels (id 4) in the text.  Patterns fill ``m_bits``
+    unless ``short``: then ``m_lens`` are drawn from ``[0, m_bits]``, the
+    first three lanes being 0, 1 and ``m_bits``, and the tail past each is
+    the wildcard."""
+    pats = rng.integers(0, 4, size=(b, m_bits)).astype(np.int8)
+    texts = rng.integers(0, 4, size=(b, n)).astype(np.int8)
+    keep = min(n, m_bits)
+    same = rng.random((b, keep)) >= 0.1
+    texts[:, :keep] = np.where(same, pats[:, :keep], texts[:, :keep])
+    texts[rng.random((b, n)) < 0.01] = 4
+    m_lens = np.full(b, m_bits, np.int32)
+    if short:
+        m_lens = rng.integers(0, m_bits + 1, size=b).astype(np.int32)
+        m_lens[:3] = [0, 1, m_bits][:b]
+        pats[np.arange(m_bits)[None, :] >= m_lens[:, None]] = 4
+    args = tuple(torch.from_numpy(x).to(device) for x in (texts, pats, m_lens))
+    return args, dict(m_bits=m_bits, mode=mode)
+
+
 KERNELS = (
     Kernel("window_dc_batch", window_dc_batch, window_dc_batch_plain,
            "src/repro_torch/kernels/csrc/genasm_dc.cu",
@@ -78,6 +104,9 @@ KERNELS = (
     Kernel("bitalign_dc_batch", bitalign_dc_batch, bitalign_rows,
            "src/repro_torch/kernels/csrc/bitalign.cu",
            "src/repro/kernels/bitalign.py:86", bitalign_inputs),
+    Kernel("myers_distance_batch", myers_distance_batch, myers_plain,
+           "src/repro_torch/kernels/csrc/myers.cu",
+           "src/repro/kernels/myers.py:96", myers_inputs),
 )
 
 

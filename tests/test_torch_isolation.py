@@ -1,8 +1,9 @@
 """The port stands alone: no JAX and nothing of `repro` in `repro_torch`.
 
 A static scan of every module of `src/repro_torch/` and of
-`chip_smoke.py`, a fresh interpreter that imports the service entry
-point, and the entry point's refusal to fall back to the CPU.
+`chip_smoke.py`, a fresh interpreter that imports each entry point (the
+service, the edit-distance and SeGraM modules), and the service's
+refusal to fall back to the CPU.
 """
 import ast
 import os
@@ -36,14 +37,24 @@ def test_no_jax_or_repro_imports(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
-def test_entry_point_imports_no_jax_or_repro():
-    code = ("import sys; import repro_torch.launch.serve_genomics; "
+def _imports_nothing_forbidden(module: str) -> None:
+    code = (f"import sys; import {module}; "
             "mods = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(mods); assert not mods, mods")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                           env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_entry_point_imports_no_jax_or_repro():
+    _imports_nothing_forbidden("repro_torch.launch.serve_genomics")
+
+
+@pytest.mark.parametrize("module", ["repro_torch.core.edit_distance",
+                                    "repro_torch.core.segram.segram"])
+def test_use_case_module_imports_no_jax_or_repro(module):
+    _imports_nothing_forbidden(module)
 
 
 def test_default_device_raises_without_cuda(tmp_path):

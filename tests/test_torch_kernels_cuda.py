@@ -2,7 +2,8 @@
 
 A CUDA kernel has no CPU mode, so these cases skip without a card (the
 CPU suite holds the plain versions against the JAX reference in
-tests/test_torch_dc.py and tests/test_torch_graph_align.py).  The file
+tests/test_torch_dc.py, tests/test_torch_graph_align.py and
+tests/test_torch_myers.py).  The file
 imports no JAX, so it also runs on a machine with a GPU and no JAX:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
@@ -33,9 +34,24 @@ BITALIGN_SHAPES = [
          hop_rate=0.05),
     dict(b=8, n=70, m_bits=32, k=0, store_r=True),
 ]
-CASES = [(kern, shape) for kern in ops.KERNELS
-         for shape in (BITALIGN_SHAPES if kern.name == "bitalign_dc_batch"
-                       else WINDOW_SHAPES)]
+# the edit-distance main path's three sites (benchmark buffers at L = 1,000
+# and 5,000, the pattern cut to m_bits), narrow widths with the edge m_lens
+# 0, 1 and m_bits in both modes, ragged batches, and a width past one
+# 32-word segment with a partial last segment
+MYERS_SHAPES = [
+    dict(b=1024, n=1192, m_bits=1024, mode="semiglobal"),
+    dict(b=256, n=5192, m_bits=5056, mode="semiglobal"),
+    dict(b=1024, n=1192, m_bits=1024, mode="global"),
+    *(dict(b=37, n=150, m_bits=m_bits, mode=mode, short=True)
+      for m_bits in (32, 64, 96, 128) for mode in ("global", "semiglobal")),
+    dict(b=5, n=300, m_bits=64, mode="semiglobal", short=True),
+    dict(b=130, n=200, m_bits=1056, mode="global", short=True),
+    dict(b=3, n=40, m_bits=2080, mode="semiglobal", short=True),
+]
+SHAPES = {"window_dc_batch": WINDOW_SHAPES, "window_dc_batch_v2": WINDOW_SHAPES,
+          "bitalign_dc_batch": BITALIGN_SHAPES,
+          "myers_distance_batch": MYERS_SHAPES}
+CASES = [(kern, shape) for kern in ops.KERNELS for shape in SHAPES[kern.name]]
 
 
 @pytest.fixture
@@ -86,3 +102,29 @@ def test_bitalign_rejects_bad_input(cuda_device):
         kern(bases, succ, pats, p_lens, m_bits=160, k=8)
     with pytest.raises(TypeError):
         kern(bases, succ.long(), pats, p_lens, m_bits=64, k=8)
+
+
+@pytest.mark.cuda
+def test_myers_rejects_bad_input(cuda_device):
+    (texts, pats, m_lens), _ = ops.myers_inputs(
+        np.random.default_rng(0), cuda_device, b=4, n=32, m_bits=64)
+    kern = ops.KERNELS[3].wrapper
+    with pytest.raises(ValueError):
+        kern(texts, pats, m_lens, m_bits=96)  # pattern width differs
+    with pytest.raises(ValueError):
+        kern(texts, pats, m_lens, m_bits=64, mode="local")
+    with pytest.raises(ValueError):
+        kern(texts, pats, m_lens.cpu(), m_bits=64)
+    with pytest.raises(TypeError):
+        kern(texts.int(), pats, m_lens, m_bits=64)
+
+
+@pytest.mark.cuda
+def test_myers_empty_inputs_launch_nothing(cuda_device):
+    (texts, pats, m_lens), kw = ops.myers_inputs(
+        np.random.default_rng(1), cuda_device, b=4, n=32, m_bits=64, short=True)
+    kern = ops.KERNELS[3].wrapper
+    launches = kern.launches
+    assert torch.equal(kern(texts[:, :0], pats, m_lens, **kw), m_lens)
+    assert kern(texts[:0], pats[:0], m_lens[:0], **kw).shape == (0,)
+    assert kern.launches == launches
