@@ -10,11 +10,14 @@ and sequence-to-graph read-mapping deployments end to end through
 `repro_torch.launch.serve_genomics`:
 
   1. card      — nvidia-smi name and power limit, torch and CUDA versions
-  2. build     — nvcc build seconds and the ptxas register/spill report
+  2. build     — nvcc build seconds and the ptxas register/spill report;
+                 the two wavefront kernels must not spill
   3. kernels   — each kernel against its plain version (0 mismatches) at
                  its main-path shapes and a sweep; CUDA-event times of
                  kernel and plain version and the card's bound for the
-                 same work.  GenASM-DC at B=256, w=64, k=24; BitAlign at
+                 same work; each site's device time from torch.profiler;
+                 the wavefront kernels' launch geometry (warps, blocks,
+                 shared memory per block) at each site.  GenASM-DC at B=256, w=64, k=24; BitAlign at
                  the graph filter's B=1,024, N=1,536, m_bits=128, k=11
                  (R off and on) and the graph align loop's B=256, N=64,
                  m_bits=64, k=24; Myers at the edit-distance sites (B=1,024,
@@ -62,6 +65,7 @@ line.  It imports nothing of JAX or of the JAX package `repro`.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -87,10 +91,20 @@ HBM_BYTES_PER_S = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 # float32 rate counts an FMA as two operations, so one-op-per-lane integer
 # and logic instructions peak at half of it.
 INT32_OPS_PER_S = 67e12 / 2
+# each kernel's CUDA entry function, as ptxas and the profiler name it
+KERNEL_ENTRIES = {"window_dc_batch": "dc_wave_v1",
+                  "window_dc_batch_v2": "dc_kernel_v2",
+                  "bitalign_dc_batch": "bitalign_wave",
+                  "myers_distance_batch": "myers_kernel"}
+# the kernels redesigned as per-row wavefronts: their launch geometry is
+# printed before their kernels_vs_plain line, and ptxas must report no
+# spills for their entry functions
+WAVEFRONT_KERNELS = ("window_dc_batch", "bitalign_dc_batch")
 # per kernel: its main-path call sites (site, shape) and a sweep of shapes
 WINDOW_SITES = [("window_step", dict(b=256, w=64, k=24))]
 WINDOW_SWEEP = [dict(b=b, w=w, k=k) for b, w, k in (
-    (16, 64, 8), (16, 96, 16), (16, 128, 24), (5, 64, 24))]
+    (16, 64, 8), (16, 96, 16), (16, 128, 24), (5, 64, 24), (16, 32, 0),
+    (130, 64, 32), (37, 96, 31))]
 SITES = {
     "window_dc_batch": WINDOW_SITES,
     "window_dc_batch_v2": WINDOW_SITES,
@@ -128,6 +142,15 @@ SWEEPS = {
              hop_rate=0.1),
         dict(b=1024, n=1536, m_bits=128, k=11, store_r=False,
              hop_rate=0.02),
+        # the wavefront's packing edges: two graph lanes a warp up to k = 15
+        # (b = 37 leaves the last block 5 of its 8), one from k = 16, every
+        # lane at k = 31
+        dict(b=37, n=120, m_bits=128, k=15, store_r=True, short=True,
+             hop_rate=0.2),
+        dict(b=13, n=90, m_bits=64, k=16, store_r=True, short=True,
+             hop_rate=0.3),
+        dict(b=6, n=150, m_bits=96, k=31, store_r=False, short=True,
+             hop_rate=0.3),
     ],
     # m_lens drawn in [0, m_bits] with 0, 1 and m_bits always present, both
     # modes, ragged batches, a partial last 32-word segment, then L = 100 kbp
@@ -163,7 +186,51 @@ def card_line() -> str:
         check=True, capture_output=True, text=True, timeout=30).stdout.strip()
 
 
+# --------------------------------------------------------------- build ----
+def ptxas_spills(log: str) -> dict[str, list[int]]:
+    """[spill store bytes, spill load bytes] per entry function of an
+    ``nvcc -Xptxas -v`` log."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and fn:
+            out[fn] = [int(m.group(1)), int(m.group(2))]
+    return out
+
+
+def wavefront_spills(infos) -> dict[str, list[int]]:
+    """The spills of the wavefront kernels' entry functions in the
+    libraries this run built; fails if one spills or none was reported."""
+    got = {}
+    for info in infos:
+        if not info.log:  # already built: no ptxas report this run
+            continue
+        found = {fn: v for fn, v in ptxas_spills(info.log).items()
+                 if any(KERNEL_ENTRIES[k] in fn for k in WAVEFRONT_KERNELS)}
+        if info.name in ("genasm_dc", "bitalign"):
+            check(bool(found), f"no ptxas report for csrc/{info.name}.cu")
+        got.update(found)
+    spilled = {fn: v for fn, v in got.items() if any(v)}
+    check(not spilled, f"wavefront kernels spill: {spilled}")
+    return got
+
+
 # ------------------------------------------------------------- kernels ----
+def launch_geometry(name: str, args, kw, dev) -> dict:
+    """The launch a wavefront kernel makes for these inputs: warps in the
+    grid, blocks, shared memory bytes per block."""
+    from repro_torch.kernels import bitalign, genasm_dc
+
+    if name == "window_dc_batch":
+        return genasm_dc.launch_geometry(args[0].shape[0], kw["w"], kw["k"])
+    return bitalign.launch_geometry(args[0].shape[0], kw["m_bits"], kw["k"],
+                                    kw["store_r"], dev)
+
+
 def dc_work(name: str, args, kw) -> tuple[int, int]:
     """(bytes, int32 operations) one GenASM-DC call must move and do.
 
@@ -262,6 +329,27 @@ def time_ms(torch, fn, trials: int, per_trial: int = 1) -> float:
     return statistics.median(times)
 
 
+def device_ms(torch, fn, entry: str, calls: int = 10):
+    """Mean device time of the CUDA kernels whose name holds ``entry``
+    (one per call), from `torch.profiler` over ``calls`` calls after a
+    warm-up: the kernel's own time, without the host's time to launch it.
+    The mean is over the kernel records the profiler returns, which can
+    be fewer than the launches; None when it returns none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages() if entry in ev.key]
+    n = sum(ev.count for ev in evs)
+    us = sum(getattr(ev, "device_time_total", None)
+             or getattr(ev, "cuda_time_total", 0.0) for ev in evs)
+    return us / n / 1e3 if n else None
+
+
 def compare(torch, got, want, what: str) -> tuple[int, int]:
     """(mismatching words, max abs difference) of two output tuples, words
     compared as uint32; an output one side leaves out (None) must be left
@@ -280,6 +368,14 @@ def compare(torch, got, want, what: str) -> tuple[int, int]:
 def kernel_phase(torch, np, ops, dev) -> dict:
     """Each kernel against its plain version on the card; returns rows."""
     card = torch.cuda.get_device_name(dev)
+    # device times first: after the plain versions' many small launches the
+    # profiler returns fewer kernel records, and none after the Myers long set
+    dev_ms = {}
+    for kern in ops.KERNELS:
+        for site, shape in SITES[kern.name]:
+            args, kw = kern.make_inputs(np.random.default_rng(7), dev, **shape)
+            dev_ms[kern.name, site] = device_ms(
+                torch, lambda: kern.wrapper(*args, **kw), KERNEL_ENTRIES[kern.name])
     rows = {}
     for kern in ops.KERNELS:
         sweep, sites = [], []
@@ -293,12 +389,17 @@ def kernel_phase(torch, np, ops, dev) -> dict:
             sweep.append({**shape, "mismatches": mism, "max_abs_err": err})
             check(mism == 0, f"{kern.name} {shape}: {mism} mismatches")
         slow_plain = kern.name in ("bitalign_dc_batch", "myers_distance_batch")
+        geometry = []
         for site, shape in SITES[kern.name]:
             args, kw = kern.make_inputs(np.random.default_rng(7), dev, **shape)
+            if kern.name in WAVEFRONT_KERNELS:
+                geometry.append({"site": site, "shape": shape,
+                                 **launch_geometry(kern.name, args, kw, dev)})
             kernel_ms = time_ms(torch, lambda: kern.wrapper(*args, **kw), 20, 10)
             plain_ms = time_ms(torch, lambda: kern.plain(*args, **kw),
                                3 if slow_plain else 20)
             sites.append({"site": site, "shape": shape, "ms": kernel_ms,
+                          "device_ms": dev_ms[kern.name, site],
                           "plain_ms": plain_ms,
                           **bound(card, *work(kern.name, args, kw))})
         main = sites[0]  # the row's numbers: the first call site
@@ -308,6 +409,7 @@ def kernel_phase(torch, np, ops, dev) -> dict:
             "mismatches": sum(r["mismatches"] for r in sweep),
             "max_abs_err": max(r["max_abs_err"] for r in sweep),
             "ms": main["ms"], "kernel_ms": main["ms"],
+            "device_ms": main["device_ms"],
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "bytes": main["bytes"],
             "int32_ops": main["int32_ops"],
@@ -321,6 +423,9 @@ def kernel_phase(torch, np, ops, dev) -> dict:
                 "shape": MYERS_LONG, "trials": 3,
                 "ms": time_ms(torch, lambda: kern.wrapper(*args, **kw), 3),
                 **bound(card, *work(kern.name, args, kw))}
+        if geometry:
+            emit("launch_geometry", name=kern.name,
+                 entry=KERNEL_ENTRIES[kern.name], sites=geometry)
         emit("kernels_vs_plain", **rows[kern.name])
     return rows
 
@@ -835,7 +940,8 @@ def main() -> int:
          libraries=[str(i.path.relative_to(ROOT)) if i.path.is_relative_to(ROOT)
                     else str(i.path) for i in infos],
          ptxas=[ln.strip() for i in infos for ln in i.log.splitlines()
-                if "registers" in ln or "spill" in ln])
+                if "registers" in ln or "spill" in ln],
+         wavefront_spills=wavefront_spills(infos))
 
     dev = torch.device("cuda", 0)
     rows = kernel_phase(torch, np, ops, dev)
@@ -855,7 +961,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {key: r[key] for key in ("name", "route", "source", "replaces",
                                  "launches", "mismatches", "max_abs_err", "ms",
-                                 "kernel_ms", "plain_ms", "bound_ms",
+                                 "kernel_ms", "device_ms", "plain_ms", "bound_ms",
                                  "bound_by", "library_ms", "sites",
                                  "launches_by_site", "long") if key in r}
         for r in rows.values()]}), flush=True)

@@ -2,10 +2,10 @@
 
 Port of `repro.align.batched`: the window loop is inverted so the whole
 batch advances through its window steps together, and each step issues
-**one** kernel launch over ``[B, w]`` windows (one thread per window)
-followed by the batched traceback over the kernel's store.  Lanes that
-finish early keep issuing no-op windows (advance 0) until the loop
-ends.
+**one** kernel launch over ``[B, w]`` windows (a warp per window for v1,
+a thread per window for v2) followed by the batched traceback over the
+kernel's store.  Lanes that finish early keep issuing no-op windows
+(advance 0) until the loop ends.
 
 The loop itself is `core.genasm.align`, which the ``torch`` backend runs
 with the plain DC; here it runs with the kernel wrappers, so the two

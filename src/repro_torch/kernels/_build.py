@@ -36,12 +36,17 @@ SIGNATURES = {
         "genasm_dc_v1": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
         "genasm_dc_v2": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
         "genasm_dc_max_k": ((), _I),
+        # (batch, w, k, out int[3]: warps, blocks, shared bytes per block)
+        "genasm_dc_v1_geometry": ((_I, _I, _I, _P), _I),
     },
     "bitalign": {
         # (bases, succ_bits, patterns, p_lens, dists, r_out or NULL,
         #  batch, n, m_bits, k, device, stream)
         "bitalign_dc": ((_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
         "bitalign_max_k": ((), _I),
+        # (batch, m_bits, k, store_r, device, out int[3]: warps, blocks,
+        #  shared bytes per block)
+        "bitalign_geometry": ((_I, _I, _I, _I, _I, _P), _I),
     },
     "myers": {
         # (texts, patterns, m_lens, out, batch, n, m_bits, global_mode,
@@ -134,6 +139,14 @@ def library(name: str) -> ctypes.CDLL:
                 fn.restype = restype
             _libs[name] = lib
         return _libs[name]
+
+
+def geometry(fn, *args) -> dict:
+    """Call a ``*_geometry`` C entry point: the launch its kernel makes for
+    ``args``, as ``{"warps", "blocks", "smem_bytes"}`` (per block)."""
+    out = (ctypes.c_int * 3)()
+    check(fn(*args, ctypes.cast(out, ctypes.c_void_p)), fn.__name__)
+    return dict(zip(("warps", "blocks", "smem_bytes"), out))
 
 
 def check(rc: int, what: str) -> None:

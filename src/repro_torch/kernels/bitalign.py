@@ -4,7 +4,8 @@ Port of `repro.kernels.bitalign.bitalign_dc_batch` (Pallas, body
 ``_bitalign_kernel``): the SeGraM sequence-to-graph DC over ``[B, N]``
 linearized subgraphs, one lane per row, with a 16-deep hop ring and the
 ``p_len`` tail mask.  The kernel is `csrc/bitalign.cu` (``bitalign_dc``),
-one thread per lane; its source note says what bounds it on the H100.
+a per-row wavefront on a warp; its source note says what bounds it on
+the H100.
 
 Two call sites run it on the graph main path: the mapper's tile filter
 (`graph/mapper.py::_filter_dists`, distances only, ``store_r=False``) and
@@ -90,3 +91,12 @@ def bitalign_dc_batch(bases: torch.Tensor, succ_bits: torch.Tensor,
 
 bitalign_dc_batch.launches = 0
 bitalign_dc_batch.launches_by_store = {"r": 0, "no_r": 0}
+
+
+def launch_geometry(b: int, m_bits: int, k: int, store_r: bool,
+                    device: torch.device) -> dict:
+    """The launch `bitalign_dc_batch` makes on ``device`` for ``b`` rows:
+    warps in the grid, blocks, shared memory bytes per block."""
+    lib = _build.library("bitalign")
+    return _build.geometry(lib.bitalign_geometry, b, m_bits, k, int(store_r),
+                           device.index or 0)

@@ -3,8 +3,8 @@
 Port of `repro.kernels.genasm_dc.window_dc_batch` (Pallas, body
 ``_dc_kernel``): GenASM-DC over ``[B, w]`` windows with the full
 (M, I, D) traceback store.  The kernel is `csrc/genasm_dc.cu`
-(``genasm_dc_v1``), one thread per window; its source note says what
-bounds it on the H100.
+(``genasm_dc_v1``), a per-row wavefront with one window per warp; its
+source note says what bounds it on the H100.
 
 `window_dc_batch` takes the plain version for a tensor on the CPU and
 launches the kernel for a CUDA tensor — there is no fallback from one to
@@ -82,3 +82,10 @@ def window_dc_batch(sub_texts: torch.Tensor, sub_patterns: torch.Tensor, *,
 
 
 window_dc_batch.launches = 0
+
+
+def launch_geometry(b: int, w: int, k: int) -> dict:
+    """The launch `window_dc_batch` makes on the card for ``[b, w]`` windows
+    at ``k``: warps in the grid, blocks, shared memory bytes per block."""
+    lib = _build.library("genasm_dc")
+    return _build.geometry(lib.genasm_dc_v1_geometry, b, w, k)

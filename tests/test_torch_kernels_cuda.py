@@ -20,10 +20,12 @@ from repro_torch.kernels import ops
 
 WINDOW_SHAPES = [dict(b=b, w=w, k=k) for b, w, k in (
     (256, 64, 24), (16, 64, 8), (16, 96, 16), (16, 128, 24), (5, 64, 24),
-    (16, 32, 0), (130, 64, 32))]
+    (16, 32, 0), (130, 64, 32), (37, 96, 31))]
 # the graph main path's two call sites (filter: R off; align: R on), a
 # ragged batch with short patterns and dense hops (hops past N included),
-# and the kernel's widest rows
+# the kernel's widest rows, and the edges of the wavefront's packing: two
+# graph lanes a warp up to k = 15, one from k = 16, every lane at k = 31
+# (b = 37 at k = 15 leaves the last block 5 of its 8 graph lanes)
 BITALIGN_SHAPES = [
     dict(b=1024, n=1536, m_bits=128, k=11, store_r=False),
     dict(b=256, n=64, m_bits=64, k=24, store_r=True),
@@ -33,6 +35,15 @@ BITALIGN_SHAPES = [
     dict(b=40, n=100, m_bits=128, k=32, store_r=True, short=True,
          hop_rate=0.05),
     dict(b=8, n=70, m_bits=32, k=0, store_r=True),
+    dict(b=37, n=120, m_bits=128, k=15, store_r=True, short=True,
+         hop_rate=0.2),
+    dict(b=37, n=120, m_bits=128, k=15, store_r=False, short=True,
+         hop_rate=0.2),
+    dict(b=13, n=90, m_bits=64, k=16, store_r=True, short=True, hop_rate=0.3),
+    dict(b=6, n=150, m_bits=96, k=31, store_r=True, short=True,
+         hop_rate=0.3),
+    dict(b=6, n=150, m_bits=96, k=31, store_r=False, short=True,
+         hop_rate=0.3),
 ]
 # the edit-distance main path's three sites (benchmark buffers at L = 1,000
 # and 5,000, the pattern cut to m_bits), narrow widths with the edge m_lens
@@ -128,3 +139,20 @@ def test_myers_empty_inputs_launch_nothing(cuda_device):
     assert torch.equal(kern(texts[:, :0], pats, m_lens, **kw), m_lens)
     assert kern(texts[:0], pats[:0], m_lens[:0], **kw).shape == (0,)
     assert kern.launches == launches
+
+
+@pytest.mark.cuda
+def test_wavefront_launch_geometry(cuda_device):
+    """One warp per window (v1); BitAlign packs two graph lanes a warp up
+    to k = 15, four warps a block, with a hop ring of 16 slots without R
+    and 32 or 64 with it."""
+    from repro_torch.kernels import bitalign, genasm_dc
+
+    assert genasm_dc.launch_geometry(256, 64, 24) == dict(
+        warps=256, blocks=256, smem_bytes=38_400 + 64)
+    assert bitalign.launch_geometry(1024, 128, 11, False, cuda_device) == dict(
+        warps=512, blocks=128, smem_bytes=4 * (16 * 4 * 32 + 2 * 16) * 4)
+    assert bitalign.launch_geometry(256, 64, 24, True, cuda_device) == dict(
+        warps=256, blocks=64, smem_bytes=4 * (64 * 2 * 32 + 16) * 4)
+    assert bitalign.launch_geometry(37, 128, 15, True, cuda_device) == dict(
+        warps=20, blocks=5, smem_bytes=4 * (32 * 4 * 32 + 2 * 16) * 4)
