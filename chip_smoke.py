@@ -11,13 +11,13 @@ and sequence-to-graph read-mapping deployments end to end through
 
   1. card      — nvidia-smi name and power limit, torch and CUDA versions
   2. build     — nvcc build seconds and the ptxas register/spill report;
-                 the two wavefront kernels must not spill
+                 no kernel's entry function may spill
   3. kernels   — each kernel against its plain version (0 mismatches) at
                  its main-path shapes and a sweep; CUDA-event times of
                  kernel and plain version and the card's bound for the
                  same work; each site's device time from torch.profiler;
-                 the wavefront kernels' launch geometry (warps, blocks,
-                 shared memory per block) at each site.  GenASM-DC at B=256, w=64, k=24; BitAlign at
+                 each kernel's launch geometry (warps, blocks, shared
+                 memory per block) at each site.  GenASM-DC at B=256, w=64, k=24; BitAlign at
                  the graph filter's B=1,024, N=1,536, m_bits=128, k=11
                  (R off and on) and the graph align loop's B=256, N=64,
                  m_bits=64, k=24; Myers at the edit-distance sites (B=1,024,
@@ -91,20 +91,17 @@ HBM_BYTES_PER_S = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
 # float32 rate counts an FMA as two operations, so one-op-per-lane integer
 # and logic instructions peak at half of it.
 INT32_OPS_PER_S = 67e12 / 2
-# each kernel's CUDA entry function, as ptxas and the profiler name it
-KERNEL_ENTRIES = {"window_dc_batch": "dc_wave_v1",
-                  "window_dc_batch_v2": "dc_kernel_v2",
-                  "bitalign_dc_batch": "bitalign_wave",
-                  "myers_distance_batch": "myers_kernel"}
-# the kernels redesigned as per-row wavefronts: their launch geometry is
-# printed before their kernels_vs_plain line, and ptxas must report no
-# spills for their entry functions
-WAVEFRONT_KERNELS = ("window_dc_batch", "bitalign_dc_batch")
+# each kernel's CUDA entry functions, as ptxas and the profiler name them:
+# ptxas must report each of them, with no spills
+KERNEL_ENTRIES = {"window_dc_batch": ("dc_wave_v1",),
+                  "window_dc_batch_v2": ("dc_wave_v2",),
+                  "bitalign_dc_batch": ("bitalign_wave",),
+                  "myers_distance_batch": ("myers_lanes", "myers_pipe")}
 # per kernel: its main-path call sites (site, shape) and a sweep of shapes
 WINDOW_SITES = [("window_step", dict(b=256, w=64, k=24))]
 WINDOW_SWEEP = [dict(b=b, w=w, k=k) for b, w, k in (
     (16, 64, 8), (16, 96, 16), (16, 128, 24), (5, 64, 24), (16, 32, 0),
-    (130, 64, 32), (37, 96, 31))]
+    (130, 64, 32), (37, 96, 31), (5, 32, 0), (7, 128, 32))]
 SITES = {
     "window_dc_batch": WINDOW_SITES,
     "window_dc_batch_v2": WINDOW_SITES,
@@ -153,12 +150,20 @@ SWEEPS = {
              hop_rate=0.3),
     ],
     # m_lens drawn in [0, m_bits] with 0, 1 and m_bits always present, both
-    # modes, ragged batches, a partial last 32-word segment, then L = 100 kbp
+    # modes, ragged batches (several pairs a warp up to 16 words), a last
+    # lane with fewer words than the others, the two widths on either side
+    # of one warp a pair and a pipeline of warps, the first design's widest
+    # pattern (26 warps a pair) and this one's (32 warps, 1,024 threads),
+    # then L = 100 kbp
     "myers_distance_batch": [
         *(dict(b=37, n=150, m_bits=m_bits, mode=mode, short=True)
           for m_bits in (32, 64, 96, 128) for mode in ("global", "semiglobal")),
         dict(b=5, n=300, m_bits=64, mode="semiglobal", short=True),
         dict(b=130, n=200, m_bits=1056, mode="global", short=True),
+        dict(b=3, n=64, m_bits=10240, mode="semiglobal", short=True),
+        dict(b=3, n=64, m_bits=10272, mode="global", short=True),
+        dict(b=3, n=400, m_bits=265_632, mode="global", short=True),
+        dict(b=3, n=400, m_bits=327_680, mode="semiglobal", short=True),
         MYERS_LONG,
     ],
 }
@@ -202,33 +207,41 @@ def ptxas_spills(log: str) -> dict[str, list[int]]:
     return out
 
 
-def wavefront_spills(infos) -> dict[str, list[int]]:
-    """The spills of the wavefront kernels' entry functions in the
-    libraries this run built; fails if one spills or none was reported."""
+def kernel_spills(infos, ops) -> dict[str, list[int]]:
+    """The spills of every entry function in the libraries this run built;
+    fails if one spills or a kernel's entry went unreported."""
     got = {}
     for info in infos:
         if not info.log:  # already built: no ptxas report this run
             continue
-        found = {fn: v for fn, v in ptxas_spills(info.log).items()
-                 if any(KERNEL_ENTRIES[k] in fn for k in WAVEFRONT_KERNELS)}
-        if info.name in ("genasm_dc", "bitalign"):
-            check(bool(found), f"no ptxas report for csrc/{info.name}.cu")
+        found = ptxas_spills(info.log)
+        for kern in ops.KERNELS:
+            if Path(kern.source).stem != info.name:
+                continue
+            for entry in KERNEL_ENTRIES[kern.name]:
+                check(any(entry in fn for fn in found),
+                      f"no ptxas report for {entry} in csrc/{info.name}.cu")
         got.update(found)
     spilled = {fn: v for fn, v in got.items() if any(v)}
-    check(not spilled, f"wavefront kernels spill: {spilled}")
+    check(not spilled, f"kernels spill: {spilled}")
     return got
 
 
 # ------------------------------------------------------------- kernels ----
 def launch_geometry(name: str, args, kw, dev) -> dict:
-    """The launch a wavefront kernel makes for these inputs: warps in the
-    grid, blocks, shared memory bytes per block."""
-    from repro_torch.kernels import bitalign, genasm_dc
+    """The launch a kernel makes for these inputs: warps in the grid,
+    blocks, shared memory bytes per block (and Myers' words a lane, lanes
+    a pair and warps a pair)."""
+    from repro_torch.kernels import bitalign, genasm_dc, genasm_dc_v2, myers
 
+    b = args[0].shape[0]
     if name == "window_dc_batch":
-        return genasm_dc.launch_geometry(args[0].shape[0], kw["w"], kw["k"])
-    return bitalign.launch_geometry(args[0].shape[0], kw["m_bits"], kw["k"],
-                                    kw["store_r"], dev)
+        return genasm_dc.launch_geometry(b, kw["w"], kw["k"])
+    if name == "window_dc_batch_v2":
+        return genasm_dc_v2.launch_geometry(b, kw["w"], kw["k"])
+    if name == "myers_distance_batch":
+        return myers.launch_geometry(b, kw["m_bits"], dev)
+    return bitalign.launch_geometry(b, kw["m_bits"], kw["k"], kw["store_r"], dev)
 
 
 def dc_work(name: str, args, kw) -> tuple[int, int]:
@@ -329,10 +342,11 @@ def time_ms(torch, fn, trials: int, per_trial: int = 1) -> float:
     return statistics.median(times)
 
 
-def device_ms(torch, fn, entry: str, calls: int = 10):
-    """Mean device time of the CUDA kernels whose name holds ``entry``
-    (one per call), from `torch.profiler` over ``calls`` calls after a
-    warm-up: the kernel's own time, without the host's time to launch it.
+def device_ms(torch, fn, entries: tuple[str, ...], calls: int = 10):
+    """Mean device time of the CUDA kernels whose name holds one of
+    ``entries`` (one per call), from `torch.profiler` over ``calls`` calls
+    after a warm-up: the kernel's own time, without the host's time to
+    launch it.
     The mean is over the kernel records the profiler returns, which can
     be fewer than the launches; None when it returns none."""
     from torch.profiler import ProfilerActivity, profile
@@ -343,7 +357,8 @@ def device_ms(torch, fn, entry: str, calls: int = 10):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    evs = [ev for ev in prof.key_averages() if entry in ev.key]
+    evs = [ev for ev in prof.key_averages()
+           if any(entry in ev.key for entry in entries)]
     n = sum(ev.count for ev in evs)
     us = sum(getattr(ev, "device_time_total", None)
              or getattr(ev, "cuda_time_total", 0.0) for ev in evs)
@@ -376,6 +391,11 @@ def kernel_phase(torch, np, ops, dev) -> dict:
             args, kw = kern.make_inputs(np.random.default_rng(7), dev, **shape)
             dev_ms[kern.name, site] = device_ms(
                 torch, lambda: kern.wrapper(*args, **kw), KERNEL_ENTRIES[kern.name])
+    args, kw = ops.KERNELS[3].make_inputs(np.random.default_rng(7), dev,
+                                          **MYERS_LONG)
+    dev_ms["myers_distance_batch", "long"] = device_ms(
+        torch, lambda: ops.KERNELS[3].wrapper(*args, **kw),
+        KERNEL_ENTRIES["myers_distance_batch"], calls=3)
     rows = {}
     for kern in ops.KERNELS:
         sweep, sites = [], []
@@ -392,9 +412,8 @@ def kernel_phase(torch, np, ops, dev) -> dict:
         geometry = []
         for site, shape in SITES[kern.name]:
             args, kw = kern.make_inputs(np.random.default_rng(7), dev, **shape)
-            if kern.name in WAVEFRONT_KERNELS:
-                geometry.append({"site": site, "shape": shape,
-                                 **launch_geometry(kern.name, args, kw, dev)})
+            geometry.append({"site": site, "shape": shape,
+                             **launch_geometry(kern.name, args, kw, dev)})
             kernel_ms = time_ms(torch, lambda: kern.wrapper(*args, **kw), 20, 10)
             plain_ms = time_ms(torch, lambda: kern.plain(*args, **kw),
                                3 if slow_plain else 20)
@@ -419,13 +438,15 @@ def kernel_phase(torch, np, ops, dev) -> dict:
         if kern.name == "myers_distance_batch":  # the kernel alone, 3 trials
             args, kw = kern.make_inputs(np.random.default_rng(7), dev,
                                         **MYERS_LONG)
+            geometry.append({"site": "long", "shape": MYERS_LONG,
+                             **launch_geometry(kern.name, args, kw, dev)})
             rows[kern.name]["long"] = {
                 "shape": MYERS_LONG, "trials": 3,
                 "ms": time_ms(torch, lambda: kern.wrapper(*args, **kw), 3),
+                "device_ms": dev_ms[kern.name, "long"],
                 **bound(card, *work(kern.name, args, kw))}
-        if geometry:
-            emit("launch_geometry", name=kern.name,
-                 entry=KERNEL_ENTRIES[kern.name], sites=geometry)
+        emit("launch_geometry", name=kern.name,
+             entries=KERNEL_ENTRIES[kern.name], sites=geometry)
         emit("kernels_vs_plain", **rows[kern.name])
     return rows
 
@@ -941,7 +962,7 @@ def main() -> int:
                     else str(i.path) for i in infos],
          ptxas=[ln.strip() for i in infos for ln in i.log.splitlines()
                 if "registers" in ln or "spill" in ln],
-         wavefront_spills=wavefront_spills(infos))
+         spills=kernel_spills(infos, ops))
 
     dev = torch.device("cuda", 0)
     rows = kernel_phase(torch, np, ops, dev)

@@ -38,6 +38,7 @@ SIGNATURES = {
         "genasm_dc_max_k": ((), _I),
         # (batch, w, k, out int[3]: warps, blocks, shared bytes per block)
         "genasm_dc_v1_geometry": ((_I, _I, _I, _P), _I),
+        "genasm_dc_v2_geometry": ((_I, _I, _I, _P), _I),
     },
     "bitalign": {
         # (bases, succ_bits, patterns, p_lens, dists, r_out or NULL,
@@ -53,6 +54,9 @@ SIGNATURES = {
         #  device, stream)
         "myers_distance": ((_P, _P, _P, _P, _I, _I, _I, _I, _I, _P), _I),
         "myers_max_m_bits": ((_I,), _I),
+        # (batch, m_bits, device, out int[6]: warps, blocks, shared bytes
+        #  per block, words a lane, lanes a pair, warps a pair)
+        "myers_distance_geometry": ((_I, _I, _I, _P), _I),
     },
 }
 
@@ -141,12 +145,16 @@ def library(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def geometry(fn, *args) -> dict:
+GEOMETRY_KEYS = ("warps", "blocks", "smem_bytes")
+
+
+def geometry(fn, *args, keys=GEOMETRY_KEYS) -> dict:
     """Call a ``*_geometry`` C entry point: the launch its kernel makes for
-    ``args``, as ``{"warps", "blocks", "smem_bytes"}`` (per block)."""
-    out = (ctypes.c_int * 3)()
+    ``args``, as ``{"warps", "blocks", "smem_bytes"}`` (per block) and any
+    further ``keys`` the entry point writes."""
+    out = (ctypes.c_int * len(keys))()
     check(fn(*args, ctypes.cast(out, ctypes.c_void_p)), fn.__name__)
-    return dict(zip(("warps", "blocks", "smem_bytes"), out))
+    return dict(zip(keys, out))
 
 
 def check(rc: int, what: str) -> None:

@@ -9,8 +9,10 @@ status rows alone:
 
 so storing only ``R`` (``[w+1, k+1, nw]`` with the all-ones boundary row
 ``i = w``) writes 13,000 B per window at w=64, k=24 instead of 38,400 B.
-The kernel is ``genasm_dc_v2`` in `csrc/genasm_dc.cu`, sharing the v1
-device body.  ``window_dc_batch_v2.launches`` counts kernel launches.
+The kernel is ``genasm_dc_v2`` in `csrc/genasm_dc.cu`: v1's per-row
+wavefront, one window a warp and four windows a block, storing R in
+shared memory and writing the block's windows out as one coalesced
+region.  ``window_dc_batch_v2.launches`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 from repro_torch.core import genasm_dc as _core
 from repro_torch.core.bitvector import WORD_BITS
 
+from . import _build
 from .genasm_dc import launch
 
 
@@ -43,3 +46,11 @@ def window_dc_batch_v2(sub_texts: torch.Tensor, sub_patterns: torch.Tensor, *,
 
 
 window_dc_batch_v2.launches = 0
+
+
+def launch_geometry(b: int, w: int, k: int) -> dict:
+    """The launch `window_dc_batch_v2` makes on the card for ``[b, w]``
+    windows at ``k``: warps in the grid, blocks, shared memory bytes per
+    block."""
+    lib = _build.library("genasm_dc")
+    return _build.geometry(lib.genasm_dc_v2_geometry, b, w, k)

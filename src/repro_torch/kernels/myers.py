@@ -2,8 +2,10 @@
 
 Port of `repro.kernels.myers.myers_distance_batch` (Pallas, body
 ``_myers_kernel``): one pair per lane, global or semiglobal score.  The
-kernel is `csrc/myers.cu` (``myers_distance``), one warp per pair for
-any pattern width; its source note says what bounds it on the H100.
+kernel is `csrc/myers.cu` (``myers_distance``): each lane holds a run of
+contiguous words in registers, one warp (or part of one) a pair up to
+10,240 pattern bits and a pipeline of warps a pair beyond; its source
+note says what bounds it on the H100.
 Unlike `repro.kernels.ops.myers_distance` it needs no padding of the
 batch to a tile: the kernel guards its tail.
 
@@ -79,3 +81,17 @@ def myers_distance_batch(texts: torch.Tensor, patterns: torch.Tensor,
 
 
 myers_distance_batch.launches = 0
+
+
+GEOMETRY_KEYS = _build.GEOMETRY_KEYS + ("words_per_lane", "lanes_per_pair",
+                                        "warps_per_pair")
+
+
+def launch_geometry(b: int, m_bits: int, device: torch.device) -> dict:
+    """The launch `myers_distance_batch` makes on ``device`` for ``b``
+    pairs of ``m_bits``-bit patterns: warps in the grid, blocks, shared
+    memory bytes per block, and the words a lane, lanes a pair and warps a
+    pair it picks."""
+    lib = _build.library("myers")
+    return _build.geometry(lib.myers_distance_geometry, b, m_bits,
+                           device.index or 0, keys=GEOMETRY_KEYS)

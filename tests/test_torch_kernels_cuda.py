@@ -18,9 +18,13 @@ import torch
 
 from repro_torch.kernels import ops
 
+# the main-path shape, narrow and wide windows, k from 0 to 32, and ragged
+# batches; v2 writes four windows a block (three at w = 128, k >= 28) as
+# one region whose end is not 16-byte aligned where a window's (w+1)(k+1)
+# nw words are odd (w = 32, k = 0: b = 5 leaves a last block of one window)
 WINDOW_SHAPES = [dict(b=b, w=w, k=k) for b, w, k in (
     (256, 64, 24), (16, 64, 8), (16, 96, 16), (16, 128, 24), (5, 64, 24),
-    (16, 32, 0), (130, 64, 32), (37, 96, 31))]
+    (16, 32, 0), (130, 64, 32), (37, 96, 31), (5, 32, 0), (7, 128, 32))]
 # the graph main path's two call sites (filter: R off; align: R on), a
 # ragged batch with short patterns and dense hops (hops past N included),
 # the kernel's widest rows, and the edges of the wavefront's packing: two
@@ -47,8 +51,12 @@ BITALIGN_SHAPES = [
 ]
 # the edit-distance main path's three sites (benchmark buffers at L = 1,000
 # and 5,000, the pattern cut to m_bits), narrow widths with the edge m_lens
-# 0, 1 and m_bits in both modes, ragged batches, and a width past one
-# 32-word segment with a partial last segment
+# 0, 1 and m_bits in both modes, ragged batches (several pairs a warp up
+# to 16 words), widths whose last lane holds fewer words than the others,
+# the two widths on either side of the edge between one warp a pair (up to
+# 10,240 bits) and a pipeline of warps a pair, the widest pattern of the
+# first design (265,632 bits: 26 warps, the last lane part-filled) and the
+# widest this one takes on the H100 (327,680 bits: 32 warps, 1,024 threads)
 MYERS_SHAPES = [
     dict(b=1024, n=1192, m_bits=1024, mode="semiglobal"),
     dict(b=256, n=5192, m_bits=5056, mode="semiglobal"),
@@ -58,6 +66,10 @@ MYERS_SHAPES = [
     dict(b=5, n=300, m_bits=64, mode="semiglobal", short=True),
     dict(b=130, n=200, m_bits=1056, mode="global", short=True),
     dict(b=3, n=40, m_bits=2080, mode="semiglobal", short=True),
+    dict(b=3, n=64, m_bits=10240, mode="semiglobal", short=True),
+    dict(b=3, n=64, m_bits=10272, mode="global", short=True),
+    dict(b=3, n=400, m_bits=265_632, mode="global", short=True),
+    dict(b=3, n=400, m_bits=327_680, mode="semiglobal", short=True),
 ]
 SHAPES = {"window_dc_batch": WINDOW_SHAPES, "window_dc_batch_v2": WINDOW_SHAPES,
           "bitalign_dc_batch": BITALIGN_SHAPES,
@@ -128,6 +140,14 @@ def test_myers_rejects_bad_input(cuda_device):
         kern(texts, pats, m_lens.cpu(), m_bits=64)
     with pytest.raises(TypeError):
         kern(texts.int(), pats, m_lens, m_bits=64)
+    from repro_torch.kernels import _build
+
+    max_bits = _build.library("myers").myers_max_m_bits(0)
+    assert max_bits >= 265_632  # the first design's widest on a 227 KB card
+    wide = torch.full((4, max_bits + 32), 4, dtype=torch.int8,
+                      device=cuda_device)
+    with pytest.raises(ValueError):
+        kern(texts, wide, m_lens, m_bits=max_bits + 32)
 
 
 @pytest.mark.cuda
@@ -143,13 +163,33 @@ def test_myers_empty_inputs_launch_nothing(cuda_device):
 
 @pytest.mark.cuda
 def test_wavefront_launch_geometry(cuda_device):
-    """One warp per window (v1); BitAlign packs two graph lanes a warp up
-    to k = 15, four warps a block, with a hop ring of 16 slots without R
-    and 32 or 64 with it."""
-    from repro_torch.kernels import bitalign, genasm_dc
+    """One warp per window, one window a block (v1), four a block (v2;
+    three at w = 128 from k = 28); BitAlign packs two graph lanes a warp up to
+    k = 15, four warps a block, with a hop ring of 16 slots without R and
+    32 or 64 with it; Myers one warp a pair at L = 1 and 5 kbp, 10
+    warps a pair at 100 kbp and up to 32 for the widest patterns, whose
+    PEq and ring sit in shared memory."""
+    from repro_torch.kernels import bitalign, genasm_dc, genasm_dc_v2, myers
 
     assert genasm_dc.launch_geometry(256, 64, 24) == dict(
         warps=256, blocks=256, smem_bytes=38_400 + 64)
+    assert genasm_dc_v2.launch_geometry(256, 64, 24) == dict(
+        warps=256, blocks=64, smem_bytes=4 * (13_000 + 64) + 12)
+    assert genasm_dc_v2.launch_geometry(7, 128, 32) == dict(
+        warps=7, blocks=3, smem_bytes=3 * (68_112 + 128) + 12)
+    assert myers.launch_geometry(1024, 1024, cuda_device) == dict(
+        warps=1024, blocks=256, smem_bytes=0, words_per_lane=1,
+        lanes_per_pair=32, warps_per_pair=1)
+    assert myers.launch_geometry(256, 5056, cuda_device) == dict(
+        warps=256, blocks=64, smem_bytes=0, words_per_lane=5,
+        lanes_per_pair=32, warps_per_pair=1)
+    assert myers.launch_geometry(8, 100_032, cuda_device) == dict(
+        warps=80, blocks=8, smem_bytes=(10 * 5 * 10 * 32 + 2 * 10) * 4,
+        words_per_lane=10, lanes_per_pair=32, warps_per_pair=10)
+    for m_bits, g in ((265_632, 26), (327_680, 32)):  # the widest two
+        assert myers.launch_geometry(3, m_bits, cuda_device) == dict(
+            warps=3 * g, blocks=3, smem_bytes=(g * 5 * 10 * 32 + 2 * g) * 4,
+            words_per_lane=10, lanes_per_pair=32, warps_per_pair=g)
     assert bitalign.launch_geometry(1024, 128, 11, False, cuda_device) == dict(
         warps=512, blocks=128, smem_bytes=4 * (16 * 4 * 32 + 2 * 16) * 4)
     assert bitalign.launch_geometry(256, 64, 24, True, cuda_device) == dict(

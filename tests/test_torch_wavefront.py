@@ -19,9 +19,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.myers import myers_distance_batch as myers_plain
 from repro_torch.core.segram.bitalign import bitalign_rows
 from repro_torch.kernels import ops
 from repro_torch.kernels.genasm_dc import window_dc_batch_plain
+from repro_torch.kernels.genasm_dc_v2 import window_dc_batch_v2_plain
 
 LANES = 32
 HOPS = 16  # HOP_LIMIT
@@ -240,30 +242,53 @@ def test_bitalign_wavefront_served_density(b, n, k, store_r):
         np.testing.assert_array_equal(got_r, want_r.numpy())
 
 
-# ------------------------------------------------------------ GenASM-DC v1 ----
-def dc_v1_wavefront(texts, pats, *, w: int, k: int):
-    """``dc_wave_v1`` step by step, one window per warp: returns ``(d_min
-    [B] int32, tb [B, w, k+1, 3, nw] int32)`` as the kernel writes them."""
+# ------------------------------------------------------------- GenASM-DC ----
+SMEM_OPTIN = 232_448  # kSmemOptin: dynamic shared memory a block
+
+
+def dc_window_words(r_only: bool, w: int, k: int) -> int:
+    """`window_words`: v1 (M, I, D) [w][k+1][3][nw], v2 R [w+1][k+1][nw]."""
+    nw = w // 32
+    return (w + 1) * (k + 1) * nw if r_only else w * (k + 1) * 3 * nw
+
+
+def dc_windows_a_block(r_only: bool, w: int, k: int) -> int:
+    """`geometry()`'s windows a block: 1 for v1, up to 4 for v2."""
+    words = dc_window_words(r_only, w, k)
+    p = 4 if r_only else 1
+    while p > 1 and p * (w + 4 * words) + (12 if r_only else 0) > SMEM_OPTIN:
+        p -= 1
+    return p
+
+
+def dc_wavefront(texts, pats, *, w: int, k: int, r_only: bool):
+    """``dc_wave`` step by step, one window per warp: returns ``(d_min [B]
+    int32, st [B, ...] uint32)``, each window's store as the warp leaves
+    it in shared memory -- (M, I, D) ``[w, k+1, 3, nw]`` for v1, R ``[w+1,
+    k+1, nw]`` with the all-ones row i = w for v2."""
     b_rows = texts.shape[0]
     nw, rows, extra = w // 32, k + 1, k == MAX_K
     lane = np.arange(LANES)
     warps = np.arange(b_rows)
     pm = lane_masks(pats, warps, nw)  # [W, 5, nw], the same in every lane
-    st = np.full((b_rows, w, rows, 3, nw), SENTINEL, np.uint32)  # shared memory
+    shape = (w + 1, rows, nw) if r_only else (w, rows, 3, nw)
+    st = np.full((b_rows,) + shape, SENTINEL, np.uint32)  # shared memory
+    if r_only:
+        st[:, w] = ONES  # the boundary row
     own = np.full((b_rows, LANES, nw), ONES)  # R_old[d], then R_new[d]
     held = own.copy()  # R_old[d-1]
     own32, held32 = own[:, :1].copy(), own[:, :1].copy()  # row 32 on lane 0
 
-    def v1_row(i, drow, first, own_, held_, in_):
+    def dc_row(i, drow, first, own_, held_, in_):
         """Lanes ``[L]`` at chars ``i [L]``; state ``[W, L, nw]`` updated in
-        place; (M, I, D) into the window store."""
+        place; the row's part of the window store."""
         c = texts[:, i].astype(np.int64)
         m = shl1(own_) | select_pm(np.broadcast_to(pm[:, None], own_.shape[:2] + pm.shape[1:]), c)
         f = first[None, :, None]
         ins = np.where(f, ONES, shl1(in_))
         dd = np.where(f, ONES, held_)
-        st[:, i, drow] = np.stack([m, ins, dd], axis=-2)
         new = np.where(f, m, held_ & shl1(held_) & ins & m)
+        st[:, i, drow] = new if r_only else np.stack([m, ins, dd], axis=-2)
         return new, np.where(f, held_, in_)
 
     for s in range(w + k):
@@ -272,18 +297,54 @@ def dc_v1_wavefront(texts, pats, *, w: int, k: int):
         i = w - 1 - s + lane
         act = (lane <= k) & (i >= 0) & (i < w)
         if act.any():
-            own[:, act], held[:, act] = v1_row(i[act], lane[act], lane[act] == 0,
+            own[:, act], held[:, act] = dc_row(i[act], lane[act], lane[act] == 0,
                                                own[:, act], held[:, act],
                                                inn[:, act])
         i32 = w - 1 - s + MAX_K
         if extra and 0 <= i32 < w:
-            own32, held32 = v1_row(np.array([i32]), np.array([MAX_K]),
+            own32, held32 = dc_row(np.array([i32]), np.array([MAX_K]),
                                    np.array([False]), own32, held32, in32)
 
     zero = ballot((lane <= k) & ((own[..., -1] >> 31) == 0))
     zero32 = extra & ((own32[:, 0, -1] >> 31) == 0)
     d_min = np.where(zero != 0, first_set(zero), np.where(zero32, MAX_K, k + 1))
-    return d_min.astype(np.int32), st.view(np.int32)
+    return d_min.astype(np.int32), st
+
+
+def dc_write_out(st, *, windows: int, r_only: bool) -> np.ndarray:
+    """The blocks' write-out of the window stores ``st [B, ...]``, P =
+    ``windows`` a block, into device memory: each block lays its P stores
+    in shared memory at the word offset (region start) mod 4, then writes a
+    head of up to 3 words, a body of 16-byte stores -- asserted aligned on
+    both sides -- and a tail.  Returns device memory, ``st``'s shape."""
+    b_rows = st.shape[0]
+    words = st[0].size
+    flat = np.full(b_rows * words, SENTINEL, np.uint32)
+    for blk in range(-(-b_rows // windows)):
+        s0 = blk * windows * words
+        nwin = min(windows, b_rows - blk * windows)
+        total = nwin * words
+        pad = s0 % 4 if r_only else 0
+        smem = np.full(pad + windows * words, SENTINEL, np.uint32)
+        smem[pad:pad + total] = st[blk * windows:blk * windows + nwin].ravel()
+        head = min((4 - pad) % 4, total)
+        body = (total - head) // 4
+        flat[s0:s0 + head] = smem[pad:pad + head]
+        if body:
+            assert (s0 + head) % 4 == 0 and (pad + head) % 4 == 0
+        for x in range(body):  # one uint4 each
+            g, sm = s0 + head + 4 * x, pad + head + 4 * x
+            flat[g:g + 4] = smem[sm:sm + 4]
+        rest = head + 4 * body
+        flat[s0 + rest:s0 + total] = smem[pad + rest:pad + total]
+    return flat.reshape(st.shape)
+
+
+def dc_v1_wavefront(texts, pats, *, w: int, k: int):
+    """``dc_wave_v1``: ``(d_min [B] int32, tb [B, w, k+1, 3, nw] int32)``
+    as the kernel writes them."""
+    d_min, st = dc_wavefront(texts, pats, w=w, k=k, r_only=False)
+    return d_min, dc_write_out(st, windows=1, r_only=False).view(np.int32)
 
 
 @pytest.mark.parametrize("nw", (1, 2, 3, 4))
@@ -296,3 +357,255 @@ def test_dc_v1_wavefront_matches_plain(k, nw):
     got_d, got_tb = dc_v1_wavefront(texts.numpy(), pats.numpy(), w=w, k=k)
     np.testing.assert_array_equal(got_d, want_d.numpy())
     np.testing.assert_array_equal(got_tb, want_tb.numpy())
+
+
+@pytest.mark.parametrize("nw", (1, 2, 3, 4))
+@pytest.mark.parametrize("k", (0, 11, 24, 31, 32))
+def test_dc_v2_wavefront_matches_plain(k, nw):
+    """v2's schedule with its R store and boundary row, written out by
+    blocks of the geometry's windows (4, or 3 at w = 128 from k = 28) and of 1
+    and 3 windows, whose regions start at odd words where (w+1)(k+1)nw is
+    odd; b = 7 leaves a ragged last block."""
+    rng = np.random.default_rng(3000 * k + nw)
+    w = 32 * nw
+    (texts, pats), _ = ops.window_inputs(rng, "cpu", b=7, w=w, k=k)
+    want_d, want_r = window_dc_batch_v2_plain(texts, pats, w=w, k=k)
+    got_d, st = dc_wavefront(texts.numpy(), pats.numpy(), w=w, k=k, r_only=True)
+    np.testing.assert_array_equal(got_d, want_d.numpy())
+    assert dc_windows_a_block(True, w, k) == (3 if w == 128 and k >= 28 else 4)
+    for windows in (dc_windows_a_block(True, w, k), 1, 3):
+        got_r = dc_write_out(st, windows=windows, r_only=True)
+        np.testing.assert_array_equal(got_r.view(np.int32), want_r.numpy())
+
+
+# ------------------------------------------------------------------ Myers ----
+M32 = 0xFFFFFFFF
+SINGLE_MAX_S, PIPE_S, MAX_WARPS = 10, 10, 32
+
+
+def myers_launch(nw: int, single_max_s: int = SINGLE_MAX_S,
+                 pipe_s: int = PIPE_S):
+    """(words a lane S, lanes a pair, warps a pair G) as `pick` chooses
+    them; smaller limits force the pipeline at small nw."""
+    if nw <= 32 * single_max_s:
+        s = -(-nw // 32)
+        width = 1
+        while width < -(-nw // s):
+            width *= 2
+        return s, width, 1
+    return pipe_s, LANES, -(-nw // (32 * pipe_s))
+
+
+def myers_schedule(texts, pats, m_lens, *, m_bits: int, mode: str, s: int,
+                   width: int, g: int, slots: int = 2):
+    """``myers_lanes`` (g = 1: one pair per ``width`` lanes) or
+    ``myers_pipe`` (g warps a pair) step by step: lane l of a pair holds
+    words [l s, l s + s) (warp gg: lanes 32 gg + l), a single ballot pair
+    resolves the lanes' carries, one shuffle shifts the (Ph, Mh) top bits,
+    and in the pipeline warp gg works on char st - gg at step st, handing
+    its carry out and top bits to warp gg + 1 through a ring of ``slots``
+    slots; within a step the warps run in order 0 .. g-1.  Returns ``[B]``
+    int32 as the kernel writes it."""
+    b_rows, n = texts.shape
+    nw = m_bits // 32
+    lane = np.arange(LANES)
+    texts = texts.astype(np.int64)
+    if g == 1:
+        per = LANES // width
+        units = -(-b_rows // per)
+        pair = np.arange(units)[:, None] * per + lane // width  # [U, 32]
+    else:
+        units = b_rows
+        pair = np.repeat(np.arange(units)[:, None], LANES, 1)
+    row = np.minimum(pair, b_rows - 1)
+    ls = lane % width  # lane in its pair's segment (one segment a warp: 32)
+    span = width * s if g == 1 else LANES * s  # words a warp (segment)
+    # the top lane of a pair that shares its warp: its carry out is dropped
+    top_lane = (ls == width - 1) & (width < LANES)
+
+    # PEq[row][c][word], zero at and above nw
+    padded = np.full((b_rows, g * span * 32), -1, np.int64)
+    padded[:, :m_bits] = pats
+    bits = padded.reshape(b_rows, -1, 32)
+    weights = np.uint64(1) << np.arange(32, dtype=np.uint64)
+    peq = np.stack([(((bits == c) | (bits == 4)).astype(np.uint64) * weights)
+                    .sum(-1) for c in range(5)], 1)  # [B, 5, words]
+
+    m_len = m_lens.astype(np.int64)[row]  # [U, 32]
+    has = (m_len >= 1) & (m_len <= m_bits)
+    sw = np.where(has, (m_len - 1) // 32, -1)
+    off = np.where(has, (m_len - 1) % 32, 0)
+    t0 = np.where(has, sw % s, 0)
+    score = np.repeat(m_len[:, None], g, 1)  # [U, G, 32]: each lane's own
+    best = score.copy()
+    out = np.full(b_rows, SENTINEL, np.int64)
+
+    pv = np.full((units, g, LANES, s), M32, np.uint64)
+    mv = np.zeros_like(pv)
+    chunk = np.zeros((units, g, LANES), np.int64)  # TextStream, per warp
+    nxt = np.zeros_like(chunk)
+
+    def load(j):  # [U, 32]: lane's text char j + ls (past the end: the last)
+        return texts[row, np.minimum(j + ls, n - 1)]
+
+    for gg in range(g):
+        chunk[:, gg], nxt[:, gg] = load(0), load(width)
+
+    def text_at(gg, j):  # `TextStream::at`, for j = 0, 1, ... in order
+        q = j & (width - 1)
+        if q == 0 and j > 0:
+            chunk[:, gg] = nxt[:, gg]
+            nxt[:, gg] = load(j + width)
+        return shfl(chunk[:, gg], q, width)
+
+    def warp_char(gg, j, cin, in_bits):
+        """Warp gg on char j; cin [U], in_bits [U]: into the warp's lane 0
+        (g > 1) or every segment's first lane (g = 1).  Returns the top
+        lane's (carry | Ph top << 1 | Mh top << 2) [U]."""
+        c = text_at(gg, j)
+        word = (gg * LANES + lane)[None, :, None] * s + np.arange(s) if g > 1 \
+            else (ls[:, None] * s + np.arange(s))[None]
+        word = np.broadcast_to(word, (units, LANES, s))
+        known = (c >= 0) & (c <= 4)
+        eq = np.where(known[..., None],
+                      peq[row[..., None], np.where(known, c, 0)[..., None], word],
+                      np.uint64(0))
+        P, Mv = pv[:, gg], mv[:, gg]
+        carry = np.zeros((units, LANES), np.uint64)
+        sum0 = np.empty_like(P)
+        for t in range(s):  # the add.cc / addc chain
+            tot = (eq[..., t] & P[..., t]) + P[..., t] + carry
+            sum0[..., t], carry = tot & M32, tot >> np.uint64(32)
+        live = (word[..., 0] < nw) & ~top_lane
+        gen = ballot(live & (carry == 1)).astype(np.uint64)
+        prop = ballot(live & (np.bitwise_and.reduce(sum0, -1) == M32)
+                      ).astype(np.uint64)
+        x = gen | prop
+        cmask = ((x + gen + cin) & M32) ^ x ^ gen
+        cout = ((gen >> 31) | ((prop >> 31) & (cmask >> 31))) & 1
+        carry = (cmask[:, None] >> lane.astype(np.uint64)) & 1
+        sm = np.empty_like(P)
+        for t in range(s):  # add the lane's carry in
+            tot = sum0[..., t] + carry
+            sm[..., t], carry = tot & M32, tot >> np.uint64(32)
+        xh = (sm ^ P) | eq
+        ph = Mv | (~(xh | P) & M32)
+        mh = P & xh
+        top = (ph[..., -1] >> 31) | ((mh[..., -1] >> 31) << 1)
+        up = shfl_up(top, width)
+        up = np.where(ls == 0, in_bits[:, None], up)
+        ph_in = np.concatenate([(up & 1)[..., None], ph[..., :-1] >> 31], -1)
+        mh_in = np.concatenate([(up >> 1)[..., None], mh[..., :-1] >> 31], -1)
+        phs = ((ph << 1) & M32) | ph_in
+        mhs = ((mh << 1) & M32) | mh_in
+        xv = eq | Mv
+        pv[:, gg] = mhs | (~(xv | phs) & M32)
+        mv[:, gg] = phs & xv
+        # the score, kept by the lane that owns word sw
+        owner = has & (word[..., 0] // s * s == sw - t0) & (
+            (sw // span == gg) if g > 1 else True)
+        pick = np.take_along_axis(ph, t0[..., None].astype(np.int64), -1)[..., 0]
+        mpick = np.take_along_axis(mh, t0[..., None].astype(np.int64), -1)[..., 0]
+        step = ((pick >> off.astype(np.uint64)) & 1).astype(np.int64) \
+            - ((mpick >> off.astype(np.uint64)) & 1).astype(np.int64)
+        score[:, gg] += np.where(owner, step, 0)
+        best[:, gg] = np.minimum(best[:, gg], score[:, gg])
+        return cout | (top[:, LANES - 1] << 1)
+
+    in0 = np.full(units, 1 if mode == "global" else 0, np.uint64)
+    zero = np.zeros(units, np.uint64)
+    if g == 1:
+        for j in range(n):
+            warp_char(0, j, zero, in0)
+    else:
+        ring = np.zeros((units, slots, g), np.uint64)
+        for st in range(n + g - 1):
+            for gg in range(g):
+                j = st - gg
+                if not 0 <= j < n:
+                    continue
+                if gg == 0:
+                    packed = in0 << 1
+                else:
+                    packed = ring[:, (st - 1) % slots, gg - 1]
+                handed = warp_char(gg, j, packed & 1, packed >> 1)
+                if gg + 1 < g:
+                    ring[:, st % slots, gg] = handed
+
+    word0 = (np.arange(g)[:, None] * LANES + lane) * s if g > 1 else ls * s
+    for u in range(units):
+        for gg in range(g):
+            for ll in range(LANES):
+                p = pair[u, ll]
+                w0 = word0[gg, ll] if g > 1 else word0[ll]
+                mine = (sw[u, ll] >= 0 and w0 <= sw[u, ll] < w0 + s) or (
+                    sw[u, ll] < 0 and w0 == 0)
+                if mine and p < b_rows:
+                    assert out[p] == SENTINEL, "two lanes write one pair"
+                    out[p] = score[u, gg, ll] if mode == "global" \
+                        else best[u, gg, ll]
+    assert (out != SENTINEL).all()
+    return out.astype(np.int32)
+
+
+def myers_pairs(rng, m_bits: int, n: int, m_lens):
+    """ACGT patterns of the given lengths (wildcard tail) and texts that
+    copy them with 10% substitutions, over A, C, G, T and the sentinel."""
+    b = len(m_lens)
+    pats = rng.integers(0, 4, size=(b, m_bits)).astype(np.int8)
+    pats[np.arange(m_bits)[None] >= np.asarray(m_lens)[:, None]] = 4
+    texts = rng.integers(0, 5, size=(b, n)).astype(np.int8)
+    keep = min(n, m_bits)
+    texts[:, :keep] = np.where(rng.random((b, keep)) < 0.9,
+                               np.minimum(pats[:, :keep], 3), texts[:, :keep])
+    return texts, pats, np.asarray(m_lens, np.int32)
+
+
+def edge_lens(m_bits: int, s: int, span: int):
+    """m_len 0, 1 and m_bits, and the first and last bit of the words on
+    either side of a lane edge (s-1, s) and a warp edge (span-1, span)."""
+    nw = m_bits // 32
+    words = [w for w in (s - 1, s, span - 1, span, nw - 1) if 0 <= w < nw]
+    return [0, 1, m_bits] + [32 * w + d for w in words for d in (1, 32)]
+
+
+def check_myers(m_bits, n, mode, launch, seed, slots=2):
+    """The schedule against the plain version.  Only a text longer than
+    a lane or warp edge's bit position moves the bits that cross that
+    edge, so the callers run texts past the pattern's end."""
+    s, width, g = launch
+    lens = edge_lens(m_bits, s, (width if g == 1 else LANES) * s)
+    rng = np.random.default_rng(seed)
+    lens = lens + list(rng.integers(0, m_bits + 1, size=5))  # ragged B
+    texts, pats, m_lens = myers_pairs(rng, m_bits, n, lens)
+    want = myers_plain(torch.from_numpy(texts), torch.from_numpy(pats),
+                       torch.from_numpy(m_lens), m_bits=m_bits, mode=mode)
+    got = myers_schedule(texts, pats, m_lens, m_bits=m_bits, mode=mode,
+                         s=s, width=width, g=g, slots=slots)
+    np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("mode", ("global", "semiglobal"))
+@pytest.mark.parametrize("m_bits", (32, 64, 96, 160, 1024, 1056, 2080))
+def test_myers_lanes_schedule_matches_plain(m_bits, mode):
+    """The launch `pick` makes up to 10,240 bits: several pairs a warp up
+    to 16 words (m_bits 32-160), one a warp beyond, partial last lanes."""
+    launch = myers_launch(m_bits // 32)
+    assert launch[2] == 1
+    check_myers(m_bits, m_bits + 40, mode, launch, m_bits)
+
+
+@pytest.mark.parametrize("mode", ("global", "semiglobal"))
+@pytest.mark.parametrize("m_bits,limit,n", [
+    (1056, 1, 1096), (2048, 1, 2088), (2080, 1, 2120), (2112, 2, 2152),
+    (3104, 1, 3144), (4160, 2, 4200), (10272, 10, 40)])
+def test_myers_pipeline_schedule_matches_plain(m_bits, limit, n, mode):
+    """The warp pipeline, forced at small nw by a small words-a-lane limit
+    (2, 3 and 4 warps of 1 word a lane, 2 and 3 of 2, the last warp with
+    one live lane), texts past the warp edges;
+    and `pick`'s own first pipeline (10,272 bits: 2 warps of 10 words a
+    lane) on a short text, whose edge bits stay still.  The score word
+    on lane and warp edges."""
+    launch = myers_launch(m_bits // 32, single_max_s=limit, pipe_s=limit)
+    assert launch[2] > 1
+    check_myers(m_bits, n, mode, launch, m_bits + limit)
