@@ -56,6 +56,21 @@ and sequence-to-graph read-mapping deployments end to end through
                  reference and 23,208 variants, 256 Illumina 100 bp reads
                  mapped on the card, identical to the CPU on the first 32
                  reads, >= 90% mapped and position-correct
+ 11. shard     — sharded serving (`repro_torch.shard`) on cuda:0, every
+                 shard on the one card: the golden PAF at 2 and 3 shards
+                 (cuda_dc and cuda_dc_v2, offline and online; at 2 shards
+                 --align-sharded and --pipelined too) and the golden GAF at
+                 2 shards (graph_cuda); the 4,641,652 bp linear deployment
+                 at 2 shards, 8,192 reads on cuda_dc_v2, timed and
+                 --pipelined, each PAF identical to the 1-shard PAF of the
+                 serve phase; the graph deployment at 2 shards, 2,048
+                 reads, identical to the graph phase's first 2,048 rows;
+                 the device merge equal to the host merge on the card (the
+                 deployment's stage outputs, and seeded stages with forced
+                 ties and graph distances past 2048); a failover drill
+                 that loses shard 1 in the scatter and again between merge
+                 and align and gives the fault-free result; every kernel
+                 of the path (v1, v2, BitAlign at both sites) launched
 
 Each phase prints one JSON line.  The kernels line precedes the card's
 nvidia-smi line, and the last line is ``{"ok": true, "device": {...}}``.
@@ -174,6 +189,7 @@ FILTER_PAIRS = 256
 SEGRAM_READS, SEGRAM_CPU_READS = 256, 32
 SEGRAM_KW = dict(m_bits=128, k=16, win_len=192, max_candidates=4,
                  minimizer_w=8, minimizer_k=12)
+SHARD_GRAPH_READS, SHARD_DRILL_READS = 2048, 256
 
 
 def emit(phase: str, **fields) -> None:
@@ -524,8 +540,9 @@ def flush_breakdown(torch, svc, backend: str) -> dict:
     }
 
 
-def serve_phase(torch, ops, sg) -> dict:
-    """Full-size serving on the card; returns the main path's launch counts."""
+def serve_phase(torch, ops, sg) -> tuple[dict, float]:
+    """Full-size serving on the card; returns the main path's launch counts
+    and the cuda_dc_v2 run's reads/s."""
     full = FULL_ARGS + ["--reads", str(FULL_READS), "--device", "cuda"]
     results, launches = {}, {}
     for backend in ("cuda_dc_v2", "cuda_dc"):
@@ -589,8 +606,9 @@ def serve_phase(torch, ops, sg) -> dict:
                                                "--device", "cuda"]))
     for backend in ("cuda_dc_v2", "cuda_dc"):
         emit("breakdown", **flush_breakdown(torch, gsvc, backend))
-    return {"window_dc_batch": launches["cuda_dc"]["window_dc_batch"],
-            "window_dc_batch_v2": launches["cuda_dc_v2"]["window_dc_batch_v2"]}
+    return ({"window_dc_batch": launches["cuda_dc"]["window_dc_batch"],
+             "window_dc_batch_v2": launches["cuda_dc_v2"]["window_dc_batch_v2"]},
+            results["cuda_dc_v2"]["reads_per_s"])
 
 
 # ------------------------------------------------------- graph serving ----
@@ -669,7 +687,7 @@ def graph_breakdown(torch, svc) -> dict:
 
 def graph_serve_phase(torch, ops, sg) -> dict:
     """The graph deployment on the card; returns the main path's launch
-    counts of the BitAlign kernel."""
+    counts of the BitAlign kernel, the deployment (``svc``) and its rows."""
     import dataclasses
 
     from repro_torch.graph.index import EpochedGraphIndex, GraphArrays
@@ -743,7 +761,222 @@ def graph_serve_phase(torch, ops, sg) -> dict:
 
     emit("breakdown_graph", **graph_breakdown(torch, svc))
     return {"bitalign_dc_batch": counts["bitalign_dc_batch"],
-            "bitalign_launches_by_site": sites}
+            "bitalign_launches_by_site": sites, "svc": svc,
+            "rows": s["rows"], "reads_per_s": s["reads_per_s"]}
+
+
+# ------------------------------------------------------- sharded serving ----
+def tied_stage(np, s: int, b: int, rng, *, graph: bool):
+    """[S, B] shard winners with ties at every level of the merge key
+    (full-key ties, which the lowest shard must win, included) and dead
+    candidates; graph distances fall on both sides of 2048."""
+    sentinel = 2 ** 31 - 1
+    if graph:
+        d = rng.choice(np.array([0, 3, 2047, 2048, 4094]), size=(s, b))
+    else:
+        d = rng.integers(0, 14, size=(s, b))
+    pos = rng.integers(0, 5000, size=(s, b))
+    tile = rng.integers(0, 2000, size=(s, b))
+    for frac, cols in ((0.4, (d,)), (0.3, (d, pos)), (0.2, (d, pos, tile))):
+        tie = rng.random(b) < frac
+        for a in cols:
+            a[:, tie] = a[0, tie]
+    dead = rng.random((s, b)) < 0.3
+    dead[:, 0] = True
+    d[dead] = 4094 if graph else 13
+    pos[dead] = sentinel
+    tile[dead] = sentinel
+    return [x.astype(np.int32) for x in (d, pos, tile)]
+
+
+def merges_agree(torch, np, host, dev) -> bool:
+    return all(np.array_equal(h, g.cpu().numpy()) for h, g in zip(host, dev))
+
+
+def shard_merge_checks(torch, np, dev, stage) -> dict:
+    """`merge_device` on the card against `merge_host`: on a deployment's
+    stage outputs and on seeded [S, B] stages with forced ties, linear
+    and graph keys; the device merge's CUDA-event time at the stage's
+    shape."""
+    from repro_torch.graph.mapper import CandidateStageResult
+    from repro_torch.shard.graph_mapper import ShardedGraphMapExecutor as GX
+    from repro_torch.shard.mapper import ShardedMapExecutor as LX
+    from repro_torch.shard.mapper import ShardStageResult
+
+    out = {"stage_shape": list(stage.text.shape),
+           "stage_identical": merges_agree(torch, np, LX.merge_host(stage),
+                                           LX.merge_device(stage)),
+           "merge_ms": time_ms(torch, lambda: LX.merge_device(stage), 20, 10)}
+    tied = []
+    for s in (2, 3, 4):
+        rng = np.random.default_rng(90 + s)
+        d, pos, _ = tied_stage(np, s, 256, rng, graph=False)
+        text = rng.integers(0, 4, size=(s, 256, 16)).astype(np.int8)
+        st = ShardStageResult(*(torch.from_numpy(x).to(dev) for x in
+                                (d, pos, text, np.abs(d) % 17)))
+        lin = LX.merge_device(st)
+        win = lin[4].cpu().numpy()
+        full_tie = ((d == d[0]) & (pos == pos[0])).all(0)
+        d, origin, tile = tied_stage(np, s, 256, rng, graph=True)
+        gst = CandidateStageResult(*(torch.from_numpy(x).to(dev) for x in (
+            d, origin, tile,
+            rng.integers(0, 2 ** 31, size=(s, 256, 8)).astype(np.int32),
+            origin[..., None].astype(np.int64) + np.arange(8),
+            np.abs(d) % 9, d < 2048)))
+        tied.append({
+            "shards": s, "full_ties": int(full_tie.sum()),
+            "low_shard_wins": bool((win[full_tie] == 0).all()),
+            "linear_identical": merges_agree(torch, np, LX.merge_host(st), lin),
+            "graph_identical": merges_agree(torch, np, GX.merge_host(gst),
+                                            GX.merge_device(gst))})
+    out["tied"] = tied
+    check(out["stage_identical"], "device merge != host merge on the card")
+    for t in tied:
+        check(t["full_ties"] > 0 and t["low_shard_wins"],
+              f"{t['shards']} shards: full-key ties not won by shard 0")
+        check(t["linear_identical"] and t["graph_identical"],
+              f"{t['shards']} shards: tied merges differ on the card")
+    return out
+
+
+def shard_phase(torch, np, ops, sg, dev, graph, one_shard_rps) -> dict:
+    """Sharded serving on cuda:0; returns each kernel's launches at the
+    sharded sites (counts set to 0 before each path, read after it)."""
+    from repro_torch import shard
+    from repro_torch.genomics import encode
+    from repro_torch.kernels.bitalign import bitalign_dc_batch
+
+    t_phase = time.perf_counter()
+    sites = {}
+
+    # the goldens at 2 and 3 shards, every shard on the one card
+    want, runs = GOLDEN.read_bytes(), []
+    ops.reset_launch_counts()
+    for shards in (2, 3):
+        modes = [(), ("--online", "--rate", "2000")]
+        if shards == 2:
+            modes += [("--align-sharded",), ("--pipelined",)]
+        for backend in ("cuda_dc", "cuda_dc_v2"):
+            for extra in modes:
+                out = OUT / f"golden_s{shards}_{backend}_{len(runs)}.paf"
+                sg.main(GOLDEN_ARGS + ["--align-backend", backend, "--device",
+                                       "cuda", "--num-shards", str(shards),
+                                       *extra, "--out", str(out)])
+                same = out.read_bytes() == want
+                runs.append({"shards": shards, "backend": backend,
+                             "mode": " ".join(extra), "identical": same})
+                check(same, f"golden PAF, {shards} shards, {backend} {extra}")
+    out = OUT / "golden_graph_s2.gaf"
+    sg.main(["--mode", "graph"] + GOLDEN_ARGS + [
+        "--align-backend", "graph_cuda", "--device", "cuda", "--num-shards",
+        "2", "--out", str(out)])
+    same = out.read_bytes() == GOLDEN_GAF.read_bytes()
+    runs.append({"shards": 2, "backend": "graph_cuda", "mode": "",
+                 "identical": same})
+    check(same, "golden GAF at 2 shards on the card")
+    golden = ops.launch_counts()
+    sites["shard_golden"] = golden
+    emit("shard_golden", runs=runs, launches=golden)
+    check(golden["window_dc_batch"] > 0 and golden["window_dc_batch_v2"] > 0
+          and golden["bitalign_dc_batch"] > 0,
+          "a kernel of the sharded golden runs was not launched")
+
+    # the linear deployment at 2 shards, timed and pipelined
+    one = (OUT / "full_cuda_dc_v2.paf").read_bytes()
+    full = {}
+    for extra in ((), ("--pipelined",)):
+        tag = "shard2" + "".join(e.replace("--", "_") for e in extra)
+        ops.reset_launch_counts()
+        s = sg.main(FULL_ARGS + ["--reads", str(FULL_READS), "--device",
+                                 "cuda", "--align-backend", "cuda_dc_v2",
+                                 "--num-shards", "2", *extra,
+                                 "--out", str(OUT / f"{tag}.paf")])
+        counts = ops.launch_counts()
+        sites[tag] = counts
+        m = s["metrics"]
+        flushes = m.get("batches_flushed", 0)
+        per_flush = {f"{st}_s_per_flush": m.get(f"stage_{st}_s", 0.0) / flushes
+                     for st in ("scatter", "merge_device", "align")}
+        same = (OUT / f"{tag}.paf").read_bytes() == one
+        full[tag] = s["reads_per_s"]
+        emit("shard_linear", shards=2, pipelined=bool(extra),
+             backend="cuda_dc_v2", reads=s["reads"], mapped=s["mapped"],
+             position_correct=s["correct"], seconds=s["seconds"],
+             reads_per_s=s["reads_per_s"], one_shard_reads_per_s=one_shard_rps,
+             flushes=flushes, **per_flush, identical_to_one_shard=same,
+             launches=counts, card=card_line())
+        check(same, f"{tag}: PAF differs from the 1-shard PAF")
+        check(counts["window_dc_batch_v2"] > 0, f"{tag}: v2 not launched")
+
+    # the graph deployment at 2 shards: the graph phase's first rows
+    svc = graph["svc"]
+    args = sg.parse_args(GRAPH_ARGS + [
+        "--reads", str(SHARD_GRAPH_READS), "--device", "cuda",
+        "--align-backend", "graph_cuda", "--num-shards", "2",
+        "--out", str(OUT / "shard2_graph.gaf")])
+    ops.reset_launch_counts()
+    s = sg.serve(svc, args)
+    counts = ops.launch_counts()
+    by_store = dict(bitalign_dc_batch.launches_by_store)
+    sites["shard2_graph"] = {**counts, "bitalign_filter": by_store["no_r"],
+                             "bitalign_align": by_store["r"]}
+    want_rows = [r for r in graph["rows"] if r["gid"] < SHARD_GRAPH_READS]
+    same = s["rows"] == want_rows
+    m = s["metrics"]
+    flushes = m.get("batches_flushed", 0)
+    emit("shard_graph", shards=2, backend="graph_cuda", reads=s["reads"],
+         mapped=s["mapped"], position_correct=s["correct"],
+         seconds=s["seconds"], reads_per_s=s["reads_per_s"],
+         one_shard_reads_per_s=graph["reads_per_s"], flushes=flushes,
+         **{f"{st}_s_per_flush": m.get(f"stage_{st}_s", 0.0) / flushes
+            for st in ("prefilter", "dc_filter", "merge_device", "align")},
+         identical_to_one_shard=same, launches=counts,
+         bitalign_launches_by_site={"filter": by_store["no_r"],
+                                    "align": by_store["r"]},
+         card=card_line())
+    check(same, "2-shard GAF differs from the 1-shard rows")
+    check(by_store["no_r"] > 0 and by_store["r"] > 0,
+          "BitAlign not launched at both sharded graph sites")
+
+    # the device merge on the card, and a failover drill, at full width
+    lsvc = sg.setup(sg.parse_args(FULL_ARGS + ["--reads",
+                                               str(SHARD_DRILL_READS),
+                                               "--device", "cuda"]))
+    cfg = lsvc.config
+    cap = cfg.bucket_for(150)
+    arr, lens = encode.batch_reads(lsvc.reads, cap)
+    kw = dict(cfg=cfg.genasm, p_cap=cap, filter_bits=min(cfg.filter_bits, cap),
+              filter_k=cfg.filter_k, shard_candidates=cfg.max_candidates,
+              backend="cuda_dc_v2")
+    halo = max(shard.DEFAULT_HALO, shard.required_halo(
+        p_cap=max(cfg.buckets), filter_bits=cfg.filter_bits,
+        filter_k=cfg.filter_k, t_cap=max(cfg.buckets) + 2 * cfg.genasm.w))
+    esi = shard.from_epoched(lsvc.index, 2, halo=halo)
+    ex = shard.get_executor(esi.index, **kw)
+    merges = shard_merge_checks(torch, np, dev,
+                                ex.stage(esi.index.parts, arr, lens))
+    emit("shard_merge", **merges, card=card_line())
+
+    clean = shard.map_batch_sharded(esi.index, arr, lens, **kw)
+    lost = []
+
+    def lose_shard_1(i, attempt):
+        if i == 1 and attempt == 1:
+            lost.append(i)
+            raise RuntimeError("drill: shard 1 lost")
+
+    drill = shard.map_batch_with_failover(
+        esi, arr, lens, fault_hook=lose_shard_1, align_fault_hook=lose_shard_1,
+        pipelined=True, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(clean, drill))
+    emit("shard_failover", reads=len(lens), faults=len(lost),
+         epochs=esi.epochs, identical=same,
+         mapped=int((clean.position >= 0).sum()))
+    check(lost == [1, 1] and esi.epochs == [0, 2], "the drill's faults")
+    check(same, "failover drill changed the result")
+    emit("shard_done", seconds=time.perf_counter() - t_phase,
+         reads_per_s=full)
+    return sites
 
 
 # ------------------------------------------------- use cases 2 and 3 ----
@@ -967,12 +1200,21 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rows = kernel_phase(torch, np, ops, dev)
     golden_phase(sg)
-    launches = serve_phase(torch, ops, sg)
+    launches, one_shard_rps = serve_phase(torch, ops, sg)
     golden_graph_phase(sg)
     graph = graph_serve_phase(torch, ops, sg)
     launches["bitalign_dc_batch"] = graph["bitalign_dc_batch"]
-    rows["bitalign_dc_batch"]["launches_by_site"] = \
-        graph["bitalign_launches_by_site"]
+    sharded = shard_phase(torch, np, ops, sg, dev, graph, one_shard_rps)
+    for name in ("window_dc_batch", "window_dc_batch_v2"):
+        rows[name]["launches_by_site"] = {
+            "serve": launches[name],
+            **{site: c[name] for site, c in sharded.items() if c.get(name)}}
+    rows["bitalign_dc_batch"]["launches_by_site"] = {
+        **graph["bitalign_launches_by_site"],
+        "shard_golden": sharded["shard_golden"]["bitalign_dc_batch"],
+        "shard_filter": sharded["shard2_graph"]["bitalign_filter"],
+        "shard_align": sharded["shard2_graph"]["bitalign_align"]}
+    del graph  # the graph deployment's device memory
     launches["myers_distance_batch"] = edit_distance_phase(torch, np, ops, dev)
     prealign_filter_phase(torch, np, dev)
     segram_phase(torch, np, dev)

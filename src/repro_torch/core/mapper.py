@@ -53,23 +53,35 @@ def lex_best(fd: torch.Tensor, fpos: torch.Tensor) -> torch.Tensor:
     return pm.argmin(-1)
 
 
-def _ref_window(ref: torch.Tensor, start: torch.Tensor, size: int) -> torch.Tensor:
-    """``[..., size]`` reference windows at ``start``, SENTINEL past the end.
+def _ref_window(buf: torch.Tensor, start: torch.Tensor, size: int) -> torch.Tensor:
+    """``[..., size]`` windows of ``buf`` at ``start``, SENTINEL past its end.
 
-    The reference slices a sentinel-padded copy of the reference with
-    ``lax.dynamic_slice``; every start it passes leaves the window inside
-    that padded buffer, so a gather with the same padding is identical.
+    The reference slices ``buf ++ SENTINEL×size`` with
+    ``lax.dynamic_slice``, which clamps the start into ``[0, len(buf)]``
+    so that the slice fits; the start is clamped the same way here, then
+    gathered with the same padding.
     """
-    idx = start.unsqueeze(-1) + torch.arange(size, device=ref.device)
-    inside = idx < ref.shape[0]
-    return torch.where(inside, ref[idx.clamp(max=ref.shape[0] - 1)], SENTINEL)
+    n = buf.shape[0]
+    idx = start.clamp(0, n).unsqueeze(-1) + torch.arange(size, device=buf.device)
+    return torch.where(idx < n, buf[idx.clamp(max=n - 1)], SENTINEL)
 
 
-def seed_and_filter_batch(index: ReferenceIndex, reads: torch.Tensor,
-                          read_lens: torch.Tensor, *, p_cap: int, t_cap: int,
-                          filter_bits: int, filter_k: int, max_candidates: int,
-                          minimizer_w: int, minimizer_k: int) -> SeedFilterResult:
-    """Seed + pre-alignment-filter a ``[B, cap]`` read batch.
+def seed_filter_rows(ref_buf: torch.Tensor, ref_offset, ref_len: int,
+                     hashes: torch.Tensor, positions: torch.Tensor,
+                     reads: torch.Tensor, read_lens: torch.Tensor, *,
+                     p_cap: int, t_cap: int, filter_bits: int, filter_k: int,
+                     max_candidates: int, minimizer_w: int,
+                     minimizer_k: int) -> SeedFilterResult:
+    """Seed + pre-alignment-filter a ``[B, cap]`` read batch against one
+    reference buffer (port of `repro.core.mapper.seed_filter_read`,
+    batched over the reads).
+
+    ``ref_buf`` is an ``[Lb] int8`` slice whose first base sits at global
+    coordinate ``ref_offset`` (an int or a 0-d tensor) of a reference of
+    ``ref_len`` bases; ``hashes``/``positions`` are a sorted minimizer
+    table in global coordinates.  The whole-reference mapper passes
+    offset 0 and the sharded mapper each shard's haloed slice: one body
+    is what keeps 1-shard and N-shard output identical.
 
     The filter takes the exact distance of each read's first
     ``filter_bits`` bases against every candidate region (one
@@ -78,11 +90,9 @@ def seed_and_filter_batch(index: ReferenceIndex, reads: torch.Tensor,
     position)`` candidate per read (``POS_SENTINEL`` when the read had no
     seed hits).  Returns that candidate's ``[t_cap]`` alignment text.
     """
-    ref = index.ref
-    ref_len = ref.shape[0]
     b = reads.shape[0]
     lens = read_lens.to(torch.int64)
-    starts, votes = seed_candidates(reads, index.hashes, index.positions,
+    starts, votes = seed_candidates(reads, hashes, positions,
                                     w=minimizer_w, k=minimizer_k,
                                     max_candidates=max_candidates)
     n_cand = starts.shape[1]
@@ -96,8 +106,9 @@ def seed_and_filter_batch(index: ReferenceIndex, reads: torch.Tensor,
     bit_idx = torch.arange(filter_bits, device=reads.device)
     fpat = torch.where(bit_idx < lens.clamp(max=filter_bits).unsqueeze(1),
                        reads[:, :filter_bits], WILDCARD).to(torch.int8)
-    s0 = (starts - margin).clamp(0, max(ref_len - 1, 0))  # [B, C]
-    region = _ref_window(ref, s0, region_len).reshape(b * n_cand, region_len)
+    s0 = (starts - margin).clamp(0, max(ref_len - 1, 0))  # [B, C] global
+    region = _ref_window(ref_buf, s0 - ref_offset,
+                         region_len).reshape(b * n_cand, region_len)
     dists = bitap_search(region, fpat.repeat_interleave(n_cand, dim=0),
                          m_bits=filter_bits, k=filter_k).reshape(b, n_cand, -1)
     fd = dists.min(-1).values
@@ -108,7 +119,7 @@ def seed_and_filter_batch(index: ReferenceIndex, reads: torch.Tensor,
     pos = torch.gather(fpos, 1, best).squeeze(1)
     best_d = torch.gather(fd, 1, best).squeeze(1)
 
-    text = _ref_window(ref, pos.clamp(max=ref_len), t_cap)
+    text = _ref_window(ref_buf, pos.clamp(max=ref_len) - ref_offset, t_cap)
     r = reads[:, :p_cap]
     if r.shape[1] < p_cap:
         r = torch.nn.functional.pad(r, (0, p_cap - r.shape[1]), value=WILDCARD)
@@ -122,6 +133,18 @@ def seed_and_filter_batch(index: ReferenceIndex, reads: torch.Tensor,
         pattern=pat,
         distance=best_d.to(torch.int32),
     )
+
+
+def seed_and_filter_batch(index: ReferenceIndex, reads: torch.Tensor,
+                          read_lens: torch.Tensor, *, p_cap: int, t_cap: int,
+                          filter_bits: int, filter_k: int, max_candidates: int,
+                          minimizer_w: int, minimizer_k: int) -> SeedFilterResult:
+    """`seed_filter_rows` against the whole indexed reference (offset 0)."""
+    return seed_filter_rows(
+        index.ref, 0, index.ref.shape[0], index.hashes, index.positions,
+        reads, read_lens, p_cap=p_cap, t_cap=t_cap, filter_bits=filter_bits,
+        filter_k=filter_k, max_candidates=max_candidates,
+        minimizer_w=minimizer_w, minimizer_k=minimizer_k)
 
 
 def _finish(sf: SeedFilterResult, read_lens: torch.Tensor, *, cfg, backend,

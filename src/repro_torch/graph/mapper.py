@@ -81,17 +81,18 @@ class GraphView(NamedTuple):
     """One shard's (or the whole graph's) view of a tiled graph index.
 
     Local array slices plus the global coordinate of each slice's first
-    row; the whole-graph view has all offsets 0.  ``idx_positions`` stay
-    global backbone coordinates in every view.
+    row (an int, or a 0-d tensor on the view's device for a shard); the
+    whole-graph view has all offsets 0.  ``idx_positions`` stay global
+    backbone coordinates in every view.
     """
 
     tile_gtext: torch.Tensor  # [Ct, tile_len] int32 packed local tiles
     tile_valid: torch.Tensor  # [Ct] valid node count per local tile
-    tile_base: int  # global tile id of local tile row 0
+    tile_base: int | torch.Tensor  # global tile id of local tile row 0
     node_of_backbone: torch.Tensor  # [Lb] local backbone→node slice
-    nb_offset: int  # global backbone coord of slice row 0
+    nb_offset: int | torch.Tensor  # global backbone coord of slice row 0
     backbone: torch.Tensor  # [Nb] local node→backbone slice
-    node_base: int  # global node id of backbone slice row 0
+    node_base: int | torch.Tensor  # global node id of backbone slice row 0
     idx_hashes: torch.Tensor  # [M] sorted minimizer hashes
     idx_positions: torch.Tensor  # [M] GLOBAL backbone positions
     tile_bloom: torch.Tensor  # [Ct, BLOOM_WORDS] int32 per-tile Bloom
@@ -331,10 +332,12 @@ def graph_candidate_stage(
 
     # backbone coordinate of every window node, shipped with the window so
     # the align stage needs no graph arrays (nodes past the graph end read
-    # backbone[n-1]; the index wraps as the reference's int32 sum does)
+    # backbone[n-1]; the sum and the shard offset wrap as the reference's
+    # int32 arithmetic wraps them)
     bb_len = view.backbone.shape[0]
-    widx = _wrap_int32(origin.unsqueeze(1)
-                       + torch.arange(t_cap, device=dev)) - view.node_base
+    widx = _wrap_int32(_wrap_int32(origin.unsqueeze(1)
+                                   + torch.arange(t_cap, device=dev))
+                       - view.node_base)
     bwin = view.backbone[widx.clamp(0, bb_len - 1)]
     return CandidateStageResult(
         distance=d_best.to(torch.int32), origin=origin,

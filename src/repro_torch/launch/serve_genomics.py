@@ -1,6 +1,6 @@
 """Read-mapping service driver (the paper's workload, end to end).
 
-Port of `repro.launch.serve_genomics` on one device.  ``--mode linear``
+Port of `repro.launch.serve_genomics`.  ``--mode linear``
 maps against a linear reference and emits PAF; ``--mode graph`` builds a
 variation-graph index (``ref_len // 200`` simulated variants) and emits
 GAF (node path + CIGAR) through the
@@ -13,13 +13,21 @@ identical output for the same read set:
 * **``--online``** — synthetic open-loop Poisson arrivals through the
   engine's admission queue, reporting reads/s and tail latency.
 
+``--num-shards N`` partitions the reference index into N shards
+(`repro_torch.shard` scatter/merge; DESIGN.md §11) with byte-identical
+output; ``--align-sharded`` cuts the align stage into per-shard blocks
+and ``--pipelined`` keeps one flush in flight.
+
 ``--device`` (default ``cuda``) picks where the index, the mapper and
-the kernels run.  With ``cuda`` and no visible GPU the driver raises; it
-never carries on on the CPU.  Pass ``--device cpu`` to run the plain
-PyTorch versions on the CPU.
+the kernels run: one device for every shard, or a comma-separated list
+of one device per shard (a bare ``cuda`` spreads the shards over the
+visible cards when there are enough).  With ``cuda`` and no visible GPU
+the driver raises; it never carries on on the CPU.  Pass ``--device
+cpu`` to run the plain PyTorch versions on the CPU.
 
     python -m repro_torch.launch.serve_genomics --reads 64 --out out.paf
     python -m repro_torch.launch.serve_genomics --mode graph --out out.gaf
+    python -m repro_torch.launch.serve_genomics --num-shards 2 --pipelined
 """
 from __future__ import annotations
 
@@ -29,7 +37,6 @@ import time
 from typing import NamedTuple
 
 import numpy as np
-import torch
 
 from repro_torch.core import minimizer_index
 from repro_torch.core.genasm import GenASMConfig
@@ -37,6 +44,7 @@ from repro_torch.dist.fault import WorkQueue
 from repro_torch.genomics import io, simulate
 from repro_torch.graph import index as graph_index
 from repro_torch.serve import EngineConfig, ServeEngine, Session, poisson_load
+from repro_torch.shard import resolve_devices
 
 
 def paf_row(gid: int, res, ref_len: int) -> dict:
@@ -114,16 +122,6 @@ def run_online(engine: ServeEngine, reads, read_ids, *, rate_rps: float,
     return sorted(rows, key=lambda r: r["gid"]), rep
 
 
-def resolve_device(name: str) -> torch.device:
-    """``--device`` -> torch device; a CUDA device must exist."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {name}: no CUDA device is visible; pass --device cpu "
-            f"to run the plain PyTorch path on the CPU")
-    return device
-
-
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ref-len", type=int, default=20_000)
@@ -143,11 +141,22 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "on a CUDA device, torch on the CPU, graph twins "
                          "under --mode graph; env REPRO_ALIGN_BACKEND "
                          "overrides auto)")
-    ap.add_argument("--num-shards", type=int, default=1, choices=(1,),
-                    help="reference shards (this port serves one)")
+    ap.add_argument("--num-shards", type=int, default=1,
+                    help="shard the reference index N ways (repro_torch.shard "
+                         "scatter/merge, one device per shard when --device "
+                         "lists them, else all on one device); PAF/GAF is "
+                         "byte-identical to --num-shards 1")
+    ap.add_argument("--align-sharded", action="store_true",
+                    help="with --num-shards > 1: cut the winning-window align "
+                         "stage into per-shard blocks (byte-identical output)")
+    ap.add_argument("--pipelined", action="store_true",
+                    help="with --num-shards > 1: keep one flush in flight — "
+                         "dispatch flush i+1 before finishing flush i "
+                         "(byte-identical output)")
     ap.add_argument("--device", default="cuda",
                     help="torch device for the index, mapper and kernels "
-                         "(cuda, cuda:N or cpu)")
+                         "(cuda, cuda:N or cpu), or one per shard, "
+                         "comma-separated")
     ap.add_argument("--online", action="store_true",
                     help="open-loop Poisson arrivals instead of the "
                          "offline work-queue drain")
@@ -191,18 +200,24 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
         align_backend=args.align_backend,
         workload=args.mode,
         filter_k=max(8, int(args.read_len * prof.error_rate * 1.5)),
+        num_shards=args.num_shards,
+        align_sharded=args.align_sharded,
+        pipelined=args.pipelined,
         minimizer_w=8, minimizer_k=12)
 
 
 # engine fields that a `serve` run may set apart from its `setup`: nothing
-# in the index or the simulated reads depends on them
-PER_RUN_FIELDS = ("max_batch", "max_delay_s", "align_backend")
+# in the index or the simulated reads depends on them (the engine shards
+# the one-device index itself)
+PER_RUN_FIELDS = ("max_batch", "max_delay_s", "align_backend", "num_shards",
+                  "align_sharded", "pipelined")
 
 
 def setup(args: argparse.Namespace) -> Service:
     """Simulate the reference and reads from their seeds, index the
-    reference on ``--device`` and derive the engine configuration."""
-    device = resolve_device(args.device)
+    reference on (the first device of) ``--device`` and derive the engine
+    configuration."""
+    device = resolve_devices(args.device, args.num_shards)[0]
     prof = simulate.PROFILES[args.profile]
     ref = simulate.random_reference(args.ref_len, seed=1)
     rs = simulate.simulate_reads(ref, n_reads=args.reads,
@@ -249,7 +264,8 @@ def serve(svc: Service, args: argparse.Namespace) -> dict:
     row_fn = svc.row_fn
     read_ids = np.arange(args.reads)
     rep = None
-    with ServeEngine(svc.index, cfg) as engine:
+    devices = resolve_devices(args.device, args.num_shards)
+    with ServeEngine(svc.index, cfg, shard_devices=devices) as engine:
         print(f"align backend: {engine.align_backend}")
         t0 = time.time()
         if args.online:

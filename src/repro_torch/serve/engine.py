@@ -1,10 +1,11 @@
 """Async micro-batching engine for online read-mapping (DESIGN.md §8).
 
-Port of `repro.serve.engine` for one device, serving the linear and the
-graph workload.  Reads arrive continuously via ``submit() -> Future``;
-the engine admits them into per-bucket queues and a background worker
-flushes a bucket when it reaches ``max_batch`` *or* its oldest read has
-waited ``max_delay_s``.
+Port of `repro.serve.engine`, serving the linear and the graph workload
+on one device or, with ``num_shards > 1``, through `repro_torch.shard`.
+Reads arrive continuously via ``submit() -> Future``; the engine admits
+them into per-bucket queues and a background worker flushes a bucket
+when it reaches ``max_batch`` *or* its oldest read has waited
+``max_delay_s``.
 
 * **Length buckets** — reads are routed to the smallest rung of a
   length-bucket ladder (default 160/320/640/1280) that holds them, so a
@@ -15,15 +16,25 @@ waited ``max_delay_s``.
   cap and tile stride (graph workload); partial flushes are padded up to
   ``max_batch`` rows so every flush of a bucket has one shape.
 
-Results are memoized in an LRU keyed on ``(read digest, index epoch)``
-(`cache.py`); refreshing the reference bumps the epoch.  The offline
-WorkQueue path and the online Poisson path of `launch/serve_genomics.py`
-both sit on the same ``submit()``/``drain()`` surface, which is what
-makes their PAF/GAF outputs bit-identical.
+* **Sharded serving** — with ``num_shards > 1`` the engine wraps the
+  index into its epoch-vector-stamped sharded form and the bucket
+  executors become `repro_torch.shard` scatter/merge/align pipelines,
+  placed on the engine's ``shard_devices``; output is byte-identical.
+  ``pipelined`` dispatches each flush without waiting for it and
+  finishes it after the next one is dispatched (one batch in flight).
 
-The engine runs on the device of its index: the worker thread moves each
-flush there and every kernel wrapper launches on that tensor's device,
-so nothing depends on the thread's current device.
+Results are memoized in an LRU keyed on ``(read digest, index epoch
+token)`` (`cache.py`) — a scalar epoch for a single-device index, the
+``(layout, epoch vector)`` token for a sharded one; refreshing the
+reference bumps it.  The offline WorkQueue path and the online Poisson
+path of `launch/serve_genomics.py` both sit on the same
+``submit()``/``drain()`` surface, which is what makes their PAF/GAF
+outputs bit-identical.
+
+The engine runs on the device of its index (the first shard device when
+sharded): the worker thread moves each flush there and every kernel
+wrapper launches on that tensor's device, so nothing depends on the
+thread's current device.
 """
 from __future__ import annotations
 
@@ -36,6 +47,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 
 from repro_torch import align as align_dispatch
+from repro_torch import shard
 from repro_torch.core import mapper
 from repro_torch.core.genasm import GenASMConfig
 from repro_torch.core.minimizer_index import EpochedIndex, ReferenceIndex
@@ -65,6 +77,15 @@ class EngineConfig:
     twins under the graph workload (``torch`` → ``graph_torch``,
     ``cuda_dc`` → ``graph_cuda``).  ``graph_prefilter`` toggles the
     graph mapper's q-gram tile screen (bitwise-neutral on output).
+
+    ``num_shards > 1`` serves through `repro_torch.shard`;
+    ``shard_candidates`` is each shard's per-read candidate budget (None
+    = ``max_candidates``, which keeps output independent of the shard
+    count; see the `repro_torch.shard.mapper` caveat before shrinking
+    it).  ``align_sharded`` cuts the align stage into per-shard blocks
+    and ``pipelined`` overlaps a flush's dispatch with the previous
+    flush's completion; both need ``num_shards > 1`` and leave the
+    output unchanged.
     """
 
     buckets: tuple[int, ...] = (160, 320, 640, 1280)
@@ -76,6 +97,8 @@ class EngineConfig:
     filter_bits: int = 128
     filter_k: int = 12
     max_candidates: int = 4
+    num_shards: int = 1
+    shard_candidates: int | None = None  # None = max_candidates per shard
     # defaults match build_reference_index/build_epoched_index and
     # mapper.map_batch, so all-defaults construction is consistent
     minimizer_w: int = 10
@@ -83,6 +106,9 @@ class EngineConfig:
     cache_capacity: int = 4096  # 0 disables the result cache
     # graph workload: q-gram tile screen before the BitAlign filter
     graph_prefilter: bool = True
+    # sharded serving: per-shard align blocks / one flush in flight
+    align_sharded: bool = False
+    pipelined: bool = False
 
     def __post_init__(self):
         if not self.buckets:
@@ -95,6 +121,16 @@ class EngineConfig:
         if self.workload not in ("linear", "graph"):
             raise ValueError(f"workload must be 'linear' or 'graph', got "
                              f"{self.workload!r}")
+        if self.num_shards < 1:
+            raise ValueError(f"num_shards must be >= 1, got "
+                             f"{self.num_shards}")
+        if self.shard_candidates is not None and self.shard_candidates < 1:
+            raise ValueError(f"shard_candidates must be >= 1, got "
+                             f"{self.shard_candidates}")
+        if (self.align_sharded or self.pipelined) and self.num_shards < 2:
+            raise ValueError(
+                "align_sharded/pipelined serve through the repro_torch.shard "
+                "executors; they need num_shards > 1")
         object.__setattr__(self, "buckets", tuple(sorted(set(self.buckets))))
 
     def bucket_for(self, length: int) -> int:
@@ -129,15 +165,34 @@ class _Request:
     t_submit: float = field(default_factory=time.monotonic)
 
 
+class _PendingFlush(NamedTuple):
+    """One dispatched flush not yet finished (pipelined mode)."""
+
+    cap: int
+    reqs: list
+    fn: object  # the sharded executor that dispatched it
+    pending: shard.PendingBatch
+    epoch: object
+    lens: np.ndarray
+    t_flush: float
+
+
 class ServeEngine:
     """Admission queue + per-bucket micro-batcher over the linear or the
-    graph mapper."""
+    graph mapper, on one device or sharded.
+
+    ``shard_devices`` places the shards of a ``num_shards > 1`` engine:
+    one device for all of them (the default: the index's device) or one
+    device per shard (`repro_torch.shard.resolve_devices`)."""
 
     def __init__(self, index, config: EngineConfig = EngineConfig(),
-                 tracer: Tracer | None = None):
+                 tracer: Tracer | None = None,
+                 shard_devices: Sequence | None = None):
         self.config = config
         self.tracer = tracer if tracer is not None else NULL_TRACER
-        if config.workload == "graph":
+        if config.num_shards > 1:
+            index = self._sharded_index(index, shard_devices)
+        elif config.workload == "graph":
             if isinstance(index, GraphIndex):
                 index = EpochedGraphIndex(index)
             elif not isinstance(index, EpochedGraphIndex):
@@ -153,13 +208,11 @@ class ServeEngine:
             raise TypeError(
                 f"linear workload needs a ReferenceIndex/EpochedIndex, got "
                 f"{type(index).__name__}")
-        if (index._build_kw["w"], index._build_kw["k"]) != \
-                (config.minimizer_w, config.minimizer_k):
-            raise ValueError(
-                f"index built with minimizer w={index._build_kw['w']}/"
-                f"k={index._build_kw['k']} but engine seeds with "
-                f"w={config.minimizer_w}/k={config.minimizer_k}; hashes "
-                f"would never match")
+        if config.num_shards > 1:
+            self._check_minimizer(index.index.minimizer_w,
+                                  index.index.minimizer_k)
+        else:
+            self._check_minimizer(index._build_kw["w"], index._build_kw["k"])
         self.index = index
         self.device = index.index.device
         # resolve "auto" once: every flush uses the same concrete backend
@@ -176,11 +229,65 @@ class ServeEngine:
         self._executors: dict[tuple, object] = {}
         self._cv = threading.Condition()
         self._inflight = 0
+        self._pending: _PendingFlush | None = None  # pipelined: one in flight
         self._closed = False
         self._error: BaseException | None = None
         self._worker = threading.Thread(
             target=self._run, name="serve-engine", daemon=True)
         self._worker.start()
+
+    def _check_minimizer(self, w: int, k: int) -> None:
+        c = self.config
+        if (w, k) != (c.minimizer_w, c.minimizer_k):
+            raise ValueError(
+                f"index built with minimizer w={w}/k={k} but engine seeds "
+                f"with w={c.minimizer_w}/k={c.minimizer_k}; hashes would "
+                f"never match")
+
+    # ------------------------------------------------------------ sharding --
+    def _shard_halo(self) -> int:
+        """Smallest halo covering every bucket's mapping geometry."""
+        c = self.config
+        cap = max(c.buckets)
+        return max(shard.DEFAULT_HALO, shard.required_halo(
+            p_cap=cap, filter_bits=min(c.filter_bits, cap),
+            filter_k=c.filter_k, t_cap=cap + 2 * c.genasm.w))
+
+    def _sharded_index(self, index, devices):
+        """Wrap/convert an index for ``num_shards > 1`` serving."""
+        c = self.config
+        graph = c.workload == "graph"
+        epoched = (shard.EpochedShardedGraphIndex if graph
+                   else shard.EpochedShardedIndex)
+        if isinstance(index, epoched):
+            esi = index
+        elif isinstance(index, (shard.ShardedIndex, shard.ShardedGraphIndex)):
+            raise TypeError(
+                "sharded serving needs an epoched sharded index (it keeps "
+                "the source for failover re-materialization); build it "
+                "with shard.from_epoched / shard.from_epoched_graph")
+        elif graph:
+            if not isinstance(index, (GraphIndex, EpochedGraphIndex)):
+                raise TypeError(
+                    f"graph workload needs a GraphIndex/EpochedGraphIndex, "
+                    f"got {type(index).__name__}")
+            esi = shard.from_epoched_graph(index, c.num_shards,
+                                           halo=self._shard_halo(),
+                                           devices=devices)
+        else:
+            if isinstance(index, ReferenceIndex):  # assumed built with w/k
+                index = EpochedIndex(index, w=c.minimizer_w, k=c.minimizer_k)
+            elif not isinstance(index, EpochedIndex):
+                raise TypeError(
+                    f"linear workload needs a ReferenceIndex/EpochedIndex, "
+                    f"got {type(index).__name__}")
+            esi = shard.from_epoched(index, c.num_shards,
+                                     halo=self._shard_halo(), devices=devices)
+        if esi.index.num_shards != c.num_shards:
+            raise ValueError(
+                f"index sharded {esi.index.num_shards} ways but config "
+                f"asks for num_shards={c.num_shards}")
+        return esi
 
     # ----------------------------------------------------------- client API --
     def submit(self, read: np.ndarray) -> Future:
@@ -262,23 +369,33 @@ class ServeEngine:
         self.close()
 
     # ----------------------------------------------------- executor cache ----
-    def _executor(self, cap: int, tile_stride: int | None = None):
+    def _executor(self, cap: int, geom=None, sharded_index=None):
         """The bucket's mapper executor, built lazily.  The config and the
         backend are fixed for the engine's lifetime, so the key is the cap
-        and, for the graph workload, the index's tile stride *at flush
-        time* — a refresh() that re-tiles the graph gets a fresh
-        executor."""
-        key = (cap, tile_stride)
+        and the index geometry *at flush time* — the graph index's tile
+        stride, or a sharded index's ``layout_key`` — so a refresh() that
+        re-tiles the graph or re-partitions the shards gets a fresh
+        executor.  ``sharded_index`` is the snapshot the flush took from
+        ``current()``."""
+        key = (cap, geom)
         fn = self._executors.get(key)
         if fn is None:
             c = self.config
-            kw = dict(cfg=c.genasm, p_cap=cap,
-                      filter_bits=min(c.filter_bits, cap),
-                      filter_k=c.filter_k, max_candidates=c.max_candidates,
-                      minimizer_w=c.minimizer_w, minimizer_k=c.minimizer_k,
-                      backend=self.align_backend)
-            if c.workload == "graph":
-                fn = GraphMapExecutor(tile_stride=tile_stride,
+            common = dict(cfg=c.genasm, p_cap=cap,
+                          filter_bits=min(c.filter_bits, cap),
+                          filter_k=c.filter_k, backend=self.align_backend)
+            shard_kw = dict(common, align_sharded=c.align_sharded,
+                            shard_candidates=(c.shard_candidates
+                                              or c.max_candidates))
+            kw = dict(common, max_candidates=c.max_candidates,
+                      minimizer_w=c.minimizer_w, minimizer_k=c.minimizer_k)
+            if c.num_shards > 1 and c.workload == "graph":
+                fn = shard.ShardedGraphMapExecutor(
+                    sharded_index, prefilter=c.graph_prefilter, **shard_kw)
+            elif c.num_shards > 1:
+                fn = shard.ShardedMapExecutor(sharded_index, **shard_kw)
+            elif c.workload == "graph":
+                fn = GraphMapExecutor(tile_stride=geom,
                                       prefilter=c.graph_prefilter, **kw)
             else:
                 fn = mapper.LinearMapExecutor(**kw)
@@ -330,17 +447,33 @@ class ServeEngine:
                 with self._cv:
                     while True:
                         if self._closed and not any(self._queues.values()):
-                            return
+                            action = "stop"
+                            break
                         now = time.monotonic()
                         picked = self._flush_candidate(now)
                         if picked is not None:
+                            action = "exec"
+                            break
+                        if self._pending is not None:
+                            # idle queue: finish the in-flight flush rather
+                            # than sit on its futures
+                            action = "finish"
                             break
                         wait = self._next_deadline(now)
                         self._cv.wait(timeout=0.05 if wait is None
                                       else min(wait, 0.05))
                     self.metrics.gauge("queue_depth").set(
                         sum(len(q) for q in self._queues.values()))
-                self._execute(*picked)  # compute outside the lock
+                if action == "stop":
+                    self._finish_pending()
+                    return
+                if action == "finish":
+                    self._finish_pending()
+                    continue
+                if self.config.pipelined:  # compute outside the lock
+                    self._execute_pipelined(*picked)
+                else:
+                    self._execute(*picked)
                 picked = None
         except BaseException as e:  # noqa: BLE001 — worker must not die silently
             with self._cv:
@@ -348,6 +481,9 @@ class ServeEngine:
                 failed = [r for q in self._queues.values() for r in q]
                 if picked is not None:  # the batch mid-execute fails too
                     failed += picked[1]
+                if self._pending is not None:  # and the dispatched one
+                    failed += self._pending.reqs
+                    self._pending = None
                 for q in self._queues.values():
                     q.clear()
                 for r in failed:
@@ -355,6 +491,71 @@ class ServeEngine:
                         r.future.set_exception(e)
                 self._inflight = 0
                 self._cv.notify_all()
+
+    def _encode(self, cap: int, reqs: list[_Request]):
+        """A flush's reads, padded to ``max_batch`` rows of ``cap`` bases."""
+        return encode.batch_reads(
+            [r.read for r in reqs]
+            + [np.zeros(0, np.int8)] * (self.config.max_batch - len(reqs)),
+            cap)
+
+    def _execute_pipelined(self, cap: int, reqs: list[_Request]) -> None:
+        """Dispatch a flush without waiting for it; finish the previous one.
+
+        One batch deep: this flush's encode, scatter, merge and align are
+        enqueued on the device before the previous flush's results are
+        copied to the host (the sharded executors' ``start`` never
+        synchronises between stages).
+        """
+        prev, self._pending = self._pending, None
+        try:
+            t_flush = time.monotonic()
+            index, epoch = self.index.current()
+            fn = self._executor(cap, index.layout_key, sharded_index=index)
+            arr, lens = self._encode(cap, reqs)
+            pending = fn.start(index.parts, arr, lens, timed=False)
+            self._pending = _PendingFlush(cap, reqs, fn, pending, epoch,
+                                          lens, t_flush)
+        except BaseException:
+            self._pending = prev  # the worker's handler fails prev too
+            raise
+        if prev is not None:
+            self._finish_flush(prev)
+
+    def _finish_pending(self) -> None:
+        prev, self._pending = self._pending, None
+        if prev is not None:
+            self._finish_flush(prev)
+
+    def _finish_flush(self, state: _PendingFlush) -> None:
+        """Wait for a dispatched flush and deliver its results."""
+        c, tr, m = self.config, self.tracer, self.metrics
+        cap, reqs = state.cap, state.reqs
+        try:
+            with tr.span("flush", bucket_cap=cap, batch=len(reqs),
+                         workload=c.workload, shards=c.num_shards,
+                         pipelined=True):
+                if tr.enabled:
+                    for r in reqs:
+                        tr.add("enqueue_wait", r.t_submit, state.t_flush,
+                               bucket_cap=cap, async_=True)
+                res, times = state.fn.finish(state.pending)
+                state.fn.last_times = list(times)
+                for name, t0, t1, attrs in times:
+                    tr.add(name, t0, t1, bucket_cap=cap, **attrs)
+                    m.counter(f"stage_{name}_s").inc(t1 - t0)
+                self._deliver(cap, reqs, state.epoch, state.lens, res,
+                              state.pending.stats)
+        except BaseException as e:
+            # this flush's futures die here: the worker's handler, which
+            # re-raises, no longer sees them (self._pending is clear)
+            for r in reqs:
+                if not r.future.done():
+                    r.future.set_exception(e)
+            raise
+        with self._cv:
+            self._inflight -= len(reqs)
+            self._cv.notify_all()
 
     def _deliver(self, cap: int, reqs: list[_Request], epoch, lens, res,
                  stats) -> None:
@@ -400,7 +601,7 @@ class ServeEngine:
         c, tr, m = self.config, self.tracer, self.metrics
         t_flush = time.monotonic()
         with tr.span("flush", bucket_cap=cap, batch=len(reqs),
-                     workload=c.workload):
+                     workload=c.workload, shards=c.num_shards):
             if tr.enabled:
                 # queue waits overlap the previous flush's compute, so
                 # they export as async spans (outside the slice nesting)
@@ -408,17 +609,18 @@ class ServeEngine:
                     tr.add("enqueue_wait", r.t_submit, t_flush,
                            bucket_cap=cap, async_=True)
             index, epoch = self.index.current()
-            if c.workload == "graph":
+            if c.num_shards > 1:
+                payload = index.parts
+                fn = self._executor(cap, index.layout_key,
+                                    sharded_index=index)
+            elif c.workload == "graph":
                 payload = index.arrays
                 fn = self._executor(cap, index.tile_stride)
             else:
                 payload = index
                 fn = self._executor(cap)
             with tr.span("encode", bucket_cap=cap):
-                arr, lens = encode.batch_reads(
-                    [r.read for r in reqs]
-                    + [np.zeros(0, np.int8)] * (c.max_batch - len(reqs)),
-                    cap)
+                arr, lens = self._encode(cap, reqs)
             res = fn(payload, arr, lens)
             # replay the executor's per-stage windows as child spans of
             # this flush, and sum them per stage in the metrics

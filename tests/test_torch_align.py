@@ -40,6 +40,9 @@ def window_inputs(seed: int, b: int = 12):
             n_del=(i + 1) % 3, t_extra=W)
         pats[i, :min(W, len(pattern))] = pattern[:W]
         texts[i] = text[:W]
+        if i % 3 == 1:  # N (id 4) inside the pattern and the text
+            pats[i, [3, 17]] = 4
+            texts[i, 9] = 4
     cap_p = rng.integers(1, W - O + 1, size=b).astype(np.int32)
     return texts, pats, cap_p
 
@@ -50,7 +53,11 @@ def pair_batch(seed: int, b: int = 8):
                                  n_sub=i % 5, n_ins=i % 3, n_del=(i + 2) % 3,
                                  t_extra=48)
              for i in range(b)]
-    return inputs.padded_batch(pairs, P_CAP, T_CAP)
+    texts, pats, p_lens, t_lens = inputs.padded_batch(pairs, P_CAP, T_CAP)
+    for i in range(1, b, 3):  # N (id 4) inside p_len, in the read and text
+        pats[i, [2, p_lens[i] // 2]] = 4
+        texts[i, t_lens[i] // 3] = 4
+    return texts, pats, p_lens, t_lens
 
 
 def words(x) -> torch.Tensor:

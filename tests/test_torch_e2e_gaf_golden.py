@@ -52,9 +52,9 @@ def test_one_setup_serves_runs_with_their_own_engine_settings(tmp_path,
     seen = []
 
     class Recording(serve_genomics.ServeEngine):
-        def __init__(self, index, config):
+        def __init__(self, index, config, **kw):
             seen.append(config)
-            super().__init__(index, config)
+            super().__init__(index, config, **kw)
 
     monkeypatch.setattr(serve_genomics, "ServeEngine", Recording)
     svc = serve_genomics.setup(serve_genomics.parse_args(BASE_ARGS))
@@ -70,3 +70,33 @@ def test_one_setup_serves_runs_with_their_own_engine_settings(tmp_path,
     with pytest.raises(ValueError, match="own setup"):
         serve_genomics.serve(svc, serve_genomics.parse_args(
             BASE_ARGS + ["--buckets", "160"]))
+
+
+def _run_sharded(tmp_path, backend: str, shards: int, *extra: str) -> bytes:
+    out = tmp_path / f"{backend}_{shards}.gaf"
+    summary = serve_genomics.main(
+        BASE_ARGS + ["--align-backend", backend, "--num-shards", str(shards),
+                     *extra, "--out", str(out)])
+    assert summary["align_backend"] == backend
+    assert summary["mapped"] == 10
+    return out.read_bytes()
+
+
+@pytest.mark.parametrize("backend", ["graph_torch", "graph_cuda"])
+@pytest.mark.parametrize("shards", [2, 3])
+def test_sharded_gaf_matches_golden(tmp_path, shards, backend):
+    """`repro_torch.shard`'s graph half (tile/backbone partition, device
+    merge) emits the 1-shard GAF bytes."""
+    assert _run_sharded(tmp_path, backend, shards) == GOLDEN.read_bytes(), \
+        f"GAF with --num-shards {shards} on {backend} diverged"
+
+
+@pytest.mark.parametrize("extra", [("--online", "--rate", "2000"),
+                                   ("--align-sharded",), ("--pipelined",)],
+                         ids=["online", "align_sharded", "pipelined"])
+@pytest.mark.parametrize("shards", [2, 3])
+def test_sharded_modes_gaf_matches_golden(tmp_path, shards, extra):
+    """Online arrivals, per-shard align blocks and one flush in flight
+    change the dispatch, not the GAF bytes."""
+    assert _run_sharded(tmp_path, "graph_cuda", shards, *extra) == \
+        GOLDEN.read_bytes(), f"GAF with --num-shards {shards} {extra} diverged"

@@ -48,6 +48,12 @@ def setup():
             r[subs] = (r[subs] + 1 + rng.integers(0, 3, size=4)) % 4
         reads.append(r)
     reads += [rng.integers(0, 4, 100).astype(np.int8) for _ in range(2)]
+    # N (id 4) inside the read: scattered, and a run
+    for n_at in ([12, 47, 81], list(range(30, 36))):
+        s = int(rng.integers(0, len(ref) - 100))
+        r = np.array(ref[s: s + 100], np.int8)
+        r[n_at] = 4
+        reads.append(r)
     arr, lens = encode.batch_reads(reads, P_CAP)
     return ref, jidx, tidx, arr, lens
 

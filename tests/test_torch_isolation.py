@@ -2,8 +2,9 @@
 
 A static scan of every module of `src/repro_torch/` and of
 `chip_smoke.py`, a fresh interpreter that imports each entry point (the
-service, the edit-distance and SeGraM modules), and the service's
-refusal to fall back to the CPU.
+service, the edit-distance and SeGraM modules), the service's refusal to
+fall back to the CPU, and a scan of the port's tests for an in-process
+import of `repro.shard`.
 """
 import ast
 import os
@@ -67,3 +68,32 @@ def test_default_device_raises_without_cuda(tmp_path):
         serve_genomics.main(["--ref-len", "2000", "--reads", "2",
                              "--out", str(out)])
     assert not out.exists()
+
+
+def _imports_repro_shard(tree: ast.AST) -> list[str]:
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names
+                    if a.name.split(".")[:2] == ["repro", "shard"]]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mod = (node.module or "").split(".")
+            if mod[:2] == ["repro", "shard"] or (
+                    mod == ["repro"] and any(a.name == "shard"
+                                             for a in node.names)):
+                bad.append(node.module)
+    return bad
+
+
+def test_port_tests_never_import_repro_shard():
+    """`repro.shard` runs only in the subprocess of
+    tests/torch_shard_reference.py: imported in a test process it would
+    stay in `sys.modules`, and the JAX package's own shard tests sharing
+    that worker would pass or fail by test order."""
+    tests = sorted((ROOT / "tests").glob("test_torch_*.py"))
+    assert len(tests) > 10
+    for path in tests:
+        bad = _imports_repro_shard(ast.parse(path.read_text()))
+        assert not bad, f"{path.name} imports {bad}"
+    probe = ast.parse("import repro.shard\nfrom repro import shard")
+    assert len(_imports_repro_shard(probe)) == 2  # the scan sees both forms

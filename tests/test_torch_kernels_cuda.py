@@ -196,3 +196,67 @@ def test_wavefront_launch_geometry(cuda_device):
         warps=256, blocks=64, smem_bytes=4 * (64 * 2 * 32 + 16) * 4)
     assert bitalign.launch_geometry(37, 128, 15, True, cuda_device) == dict(
         warps=20, blocks=5, smem_bytes=4 * (32 * 4 * 32 + 2 * 16) * 4)
+
+
+def tied_stage(s: int, b: int, rng, *, graph: bool):
+    """[S, B] shard winners with ties at every level of the merge key
+    (full-key ties too, which the lowest shard must win) and dead
+    candidates (sentinel position, or sentinel origin and tile); graph
+    distances fall on both sides of 2048."""
+    from repro_torch.core.mapper import POS_SENTINEL
+
+    if graph:
+        d = rng.choice(np.array([0, 3, 2047, 2048, 4094]), size=(s, b))
+    else:
+        d = rng.integers(0, 14, size=(s, b))
+    pos = rng.integers(0, 5000, size=(s, b))
+    tile = rng.integers(0, 2000, size=(s, b))
+    for frac, cols in ((0.4, (d,)), (0.3, (d, pos)), (0.2, (d, pos, tile))):
+        tie = rng.random(b) < frac
+        for a in cols:
+            a[:, tie] = a[0, tie]
+    dead = rng.random((s, b)) < 0.3
+    dead[:, 0] = True  # an all-dead column: shard 0 must win it
+    d[dead] = 4094 if graph else 13
+    pos[dead] = POS_SENTINEL
+    tile[dead] = POS_SENTINEL
+    return [torch.from_numpy(a.astype(np.int32)) for a in (d, pos, tile)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [2, 3, 4])
+def test_shard_merges_on_the_card(cuda_device, s):
+    """The sharded mappers' device merges on the card equal their host
+    oracles (`merge_host`), ties to the lowest shard included, for the
+    linear ``(distance, position)`` and the graph ``(distance, origin,
+    tile)`` keys."""
+    from repro_torch.graph.mapper import CandidateStageResult
+    from repro_torch.shard.graph_mapper import ShardedGraphMapExecutor
+    from repro_torch.shard.mapper import ShardedMapExecutor, ShardStageResult
+
+    rng = np.random.default_rng(90 + s)
+    d, pos, _ = tied_stage(s, 64, rng, graph=False)
+    text = torch.from_numpy(rng.integers(0, 4, size=(s, 64, 16)).astype(np.int8))
+    st = ShardStageResult(d, pos, text, d.abs() % 17)
+    host = ShardedMapExecutor.merge_host(st)
+    dev = ShardedMapExecutor.merge_device(
+        ShardStageResult(*(x.to(cuda_device) for x in st)))
+    for h, g in zip(host, dev):
+        assert g.device.type == "cuda"
+        np.testing.assert_array_equal(g.cpu().numpy(), h)
+    tied = ((d == d[0]) & (pos == pos[0])).all(0)
+    assert tied.any() and (dev[4].cpu()[tied] == 0).all()
+
+    d, origin, tile = tied_stage(s, 64, rng, graph=True)
+    gst = CandidateStageResult(
+        distance=d, origin=origin, tile=tile,
+        gwin=torch.from_numpy(rng.integers(0, 2 ** 31, size=(s, 64, 8))
+                              .astype(np.int32)),
+        bwin=origin[..., None].long() + torch.arange(8),
+        t_len=d.abs() % 9, prefilter_ok=d < 2048)
+    ghost = ShardedGraphMapExecutor.merge_host(gst)
+    gdev = ShardedGraphMapExecutor.merge_device(
+        CandidateStageResult(*(x.to(cuda_device) for x in gst)))
+    for f in CandidateStageResult._fields:
+        np.testing.assert_array_equal(getattr(gdev, f).cpu().numpy(),
+                                      getattr(ghost, f), err_msg=f)

@@ -107,11 +107,14 @@ def test_seed_candidates_with_ties():
 
 
 def mapper_inputs():
-    """The inputs of tests/test_mapper_and_filter.py::test_mapper_end_to_end."""
+    """The inputs of tests/test_mapper_and_filter.py::test_mapper_end_to_end,
+    with N (id 4) inside two reads: three scattered, and a run of five."""
     ref = simulate.random_reference(4000, seed=11)
     rs = simulate.simulate_reads(ref, n_reads=12, read_len=120,
                                  profile=simulate.ILLUMINA, seed=3)
     reads, lens = encode.batch_reads(rs.reads, 128)
+    reads[2, [7, 60, 100]] = 4
+    reads[9, 40:45] = 4
     return ref, reads, lens
 
 
