@@ -33,30 +33,49 @@ and sequence-to-graph read-mapping deployments end to end through
                  mapped and position-correct, every kernel launched
   6. breakdown — where one 256-read flush's time goes: seed+filter, and
                  within align the DC kernel, the traceback and the rest
-  7. graph     — tests/data/serve_graph_golden.gaf byte for byte with
+  7. obs       — the card's rate of the counted word operations
+                 (`csrc/word_ops.cu`, equal to its plain version, beside
+                 the h100_sxm spec's peak_word_ops); the observability
+                 plane (`repro_torch.obs`): the launcher
+                 at its defaults with --trace-out and --http-port, PAF
+                 identical to the untraced run; then, in a child process
+                 (a fresh CUDA context for torch.profiler), the serve
+                 phase's deployment: the card's idle share of 256-read
+                 flushes on cuda_dc_v2 (profiled with the CUDA activity
+                 only, with the CPU's too, and not at all), 256 reads
+                 untraced and traced in turns, four runs each (the
+                 tracer's cost; rows identical), and 2,048 reads
+                 traced on cuda_dc_v2 and cuda_dc with a roofline manager
+                 and an HTTP endpoint read while it serves (PAF rows
+                 identical to the untraced run, stage coverage >= 90%, the
+                 h100_sxm spec, 6 DC kernel records for one call at cap
+                 160, 0 < pct_of_roof_kernel <= 1.05)
+  8. graph     — tests/data/serve_graph_golden.gaf byte for byte with
                  graph_cuda, offline and online; the same reference as a
                  variation graph with 23,208 variants (--mode graph):
                  8,192 reads offline, 2,048 online at half the offline
                  rate, the first 256 reads on the CPU with graph_torch
                  (same rows), >= 90% mapped and position-correct, the
                  BitAlign kernel launched at both call sites (filter and
-                 align), and one flush's breakdown
-  8. edit_distance — use case 3 at the edit-distance benchmark's three
+                 align), one flush's breakdown, and 1,024 reads traced
+                 (attribution has prefilter, dc_filter and align; rows
+                 identical to the untraced run)
+  9. edit_distance — use case 3 at the edit-distance benchmark's three
                  settings (L = 1,000 at 95% and 80% similarity, 1,024
                  pairs; L = 5,000 at 95%, 256 pairs): the Myers kernel
                  (semiglobal) and GenASM's windowed distance (cuda_dc) on
                  the card, both equal to the CPU plain path on the first 16
                  pairs, global Myers equal to the Levenshtein oracle on 4
                  pairs, every mapped pair inside the demo's band of Myers
-  9. prealign_filter — use case 2 at the filter benchmark's shapes (read
+ 10. prealign_filter — use case 2 at the filter benchmark's shapes (read
                  100, k = 5; read 250, k = 15; 256 pairs each): accept and
                  dist identical to the CPU, false-accept and false-reject
                  rates against the prefix-Levenshtein oracle
- 10. segram    — direct SeGraM mapping: the graph phase's 4,641,652 bp
+ 11. segram    — direct SeGraM mapping: the graph phase's 4,641,652 bp
                  reference and 23,208 variants, 256 Illumina 100 bp reads
                  mapped on the card, identical to the CPU on the first 32
                  reads, >= 90% mapped and position-correct
- 11. shard     — sharded serving (`repro_torch.shard`) on cuda:0, every
+ 12. shard     — sharded serving (`repro_torch.shard`) on cuda:0, every
                  shard on the one card: the golden PAF at 2 and 3 shards
                  (cuda_dc and cuda_dc_v2, offline and online; at 2 shards
                  --align-sharded and --pipelined too) and the golden GAF at
@@ -79,12 +98,15 @@ line.  It imports nothing of JAX or of the JAX package `repro`.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -102,10 +124,10 @@ FULL_READS, ONLINE_READS, CPU_READS = 8192, 2048, 256
 # H100 PCIe and H200 SXM); a card not listed fails the bound rather than
 # borrow another card's rate.
 HBM_BYTES_PER_S = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100", 3.35e12))
-# 32-bit lane operations/s outside the tensor cores: the H100's 67 TFLOP/s
-# float32 rate counts an FMA as two operations, so one-op-per-lane integer
-# and logic instructions peak at half of it.
-INT32_OPS_PER_S = 67e12 / 2
+# the H100's device spec: its peak_word_ops is the rate of every
+# operations bound, the word operations as the *_work functions count them
+# a second, as csrc/word_ops.cu measured them on the card (word_ops_phase)
+H100_SPEC = ROOT / "src" / "repro_torch" / "obs" / "device_specs" / "h100_sxm.json"
 # each kernel's CUDA entry functions, as ptxas and the profiler name them:
 # ptxas must report each of them, with no spills
 KERNEL_ENTRIES = {"window_dc_batch": ("dc_wave_v1",),
@@ -190,6 +212,13 @@ SEGRAM_READS, SEGRAM_CPU_READS = 256, 32
 SEGRAM_KW = dict(m_bits=128, k=16, win_len=192, max_candidates=4,
                  minimizer_w=8, minimizer_k=12)
 SHARD_GRAPH_READS, SHARD_DRILL_READS = 2048, 256
+# the obs phase: linear reads traced, graph reads traced, reads a run of
+# the tracer's cost, and the idle share's 256-read flushes, each profiled
+# with the CUDA activity only ("cuda"), with the CPU's too, or not at all
+OBS_READS, OBS_GRAPH_READS, COST_READS = 2048, 1024, 256
+COST_ORDER = (False, True, True, False, False, True, True, False)
+IDLE_BATCH = 256
+IDLE_PROFILES = (None, None, "cuda", "cpu+cuda", None, "cuda")
 
 
 def emit(phase: str, **fields) -> None:
@@ -201,9 +230,9 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def card_line() -> str:
+def card_line(query: str = "name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=30).stdout.strip()
 
 
@@ -327,10 +356,16 @@ def bound(card: str, n_bytes: int, n_ops: int) -> dict:
     """The card's least time for the work: the larger of bytes over the
     memory rate and int32 operations over the peak integer rate."""
     bytes_ms = n_bytes / memory_bytes_per_s(card) * 1e3
-    ops_ms = n_ops / INT32_OPS_PER_S * 1e3
+    ops_ms = n_ops / int32_ops_per_s() * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bytes": n_bytes, "int32_ops": n_ops}
+
+
+def int32_ops_per_s() -> float:
+    """The spec's peak_word_ops: the card's measured rate of the counted
+    word operations (`word_ops_phase`)."""
+    return json.loads(H100_SPEC.read_text())["peak_word_ops"]
 
 
 def memory_bytes_per_s(card: str) -> float:
@@ -611,6 +646,335 @@ def serve_phase(torch, ops, sg) -> tuple[dict, float]:
             results["cuda_dc_v2"]["reads_per_s"])
 
 
+# ------------------------------------------------------------------ obs ----
+def http_get(url: str) -> tuple[int, str]:
+    with urllib.request.urlopen(url, timeout=600) as r:
+        return r.status, r.read().decode()
+
+
+class EndpointReader(threading.Thread):
+    """Reads the obs endpoints while a run serves: /healthz, /metrics,
+    /attrib and /trace?n=64 once each, then the roofline table measured
+    (a profiled kernel run) as soon as the first flush has registered its
+    site.  ``served`` is set when the run has ended."""
+
+    def __init__(self, url: str) -> None:
+        super().__init__(daemon=True)
+        self.url, self.served = url, threading.Event()
+        self.got: dict[str, dict] = {}
+        self.error: BaseException | None = None
+
+    def fetch(self, path: str) -> str:
+        during, t0 = not self.served.is_set(), time.perf_counter()
+        code, body = http_get(self.url + path)
+        self.got[path] = {"status": code, "during_serving": during,
+                          "seconds": time.perf_counter() - t0}
+        return body
+
+    def run(self) -> None:
+        try:
+            for path in ("/healthz", "/metrics", "/attrib", "/trace?n=64"):
+                self.fetch(path)
+            deadline = time.monotonic() + 600
+            while not json.loads(http_get(
+                    self.url + "/roofline?measure=0")[1])["kernels"]:
+                check(time.monotonic() < deadline, "no roofline site in 600 s")
+                time.sleep(0.2)
+            self.fetch("/roofline?measure=1")
+        except Exception as e:  # noqa: BLE001 — the phase reports it
+            self.error = e
+
+
+def paf_lines_below(path: Path, n_reads: int) -> list[str]:
+    """The PAF lines of reads ``read0`` .. ``read<n_reads - 1>``."""
+    return [ln for ln in path.read_text().splitlines()
+            if int(ln.split("\t", 1)[0][4:]) < n_reads]
+
+
+def obs_cli_phase(sg) -> None:
+    """The launcher at its defaults on the card with --trace-out and
+    --http-port, against the same run untraced."""
+    from repro_torch.obs.attrib import STAGE_ORDER
+
+    traced, plain, trace = (OUT / "obs_cli_traced.paf", OUT / "obs_cli.paf",
+                            OUT / "obs_cli_trace.json")
+    s = sg.main(["--device", "cuda", "--trace-out", str(trace),
+                 "--http-port", "0", "--out", str(traced)])
+    sg.main(["--device", "cuda", "--out", str(plain)])
+    events = json.loads(trace.read_text())["traceEvents"]
+    names = {e["name"] for e in events if e["ph"] in ("X", "b", "e")}
+    kernels = [r["kernel"] for r in s["roofline"]["kernels"]]
+    same = traced.read_bytes() == plain.read_bytes()
+    emit("obs_cli", reads=s["reads"], mapped=s["mapped"],
+         identical_to_untraced=same, trace_events=len(events),
+         span_names=sorted(names), roofline_kernels=kernels,
+         coverage=s["attrib"]["coverage"])
+    check(same, "--trace-out/--http-port changed the PAF")
+    check(names - {"flush"} <= set(STAGE_ORDER) and "align" in names,
+          f"trace span names {sorted(names)}")
+    check("cuda_dc/cap160" in kernels, f"roofline rows {kernels}")
+
+
+def obs_linear_phase(torch, ops, sg, svc, untraced: Path) -> dict:
+    """The linear deployment traced, on each DC kernel: a tracer, a roofline
+    manager and an HTTP endpoint on port 0 read while the run serves;
+    returns each backend's roofline row."""
+    from repro_torch.obs import (DeviceSpec, ObsServer, RooflineManager,
+                                 Tracer, build_ledger)
+    from repro_torch.obs.roofline import n_windows
+    from repro_torch.serve import Metrics
+
+    dev = torch.device("cuda", 0)
+    want = paf_lines_below(untraced, OBS_READS)
+    rows = {}
+    for backend in ("cuda_dc_v2", "cuda_dc"):
+        out = OUT / f"obs_{backend}.paf"
+        args = sg.parse_args(FULL_ARGS + [
+            "--reads", str(OBS_READS), "--device", "cuda",
+            "--align-backend", backend, "--out", str(out)])
+        tracer, metrics = Tracer(), Metrics()
+        rf = RooflineManager(spec=DeviceSpec.for_device(dev), device=dev,
+                             tracer=tracer, metrics=metrics)
+        with ObsServer(metrics=metrics, tracer=tracer, roofline=rf,
+                       port=0) as srv:
+            reader = EndpointReader(srv.url)
+            reader.start()
+            ops.reset_launch_counts()
+            s = sg.serve(svc, args, tracer=tracer, roofline=rf,
+                         metrics=metrics)
+            reader.served.set()
+            reader.join(timeout=600)
+            check(not reader.is_alive() and reader.error is None,
+                  f"{backend}: endpoint reader failed: {reader.error!r}")
+            # the tables as the run left them (the site's measurement is
+            # the one the reader's request made)
+            roof = json.loads(http_get(srv.url + "/roofline?measure=1")[1])
+            spans = json.loads(http_get(srv.url + "/trace?n=64")[1])["spans"]
+            attrib = json.loads(http_get(srv.url + "/attrib")[1])
+        counts = ops.launch_counts()
+        (row,) = [r for r in roof["kernels"] if r["bucket_cap"] == 160]
+        rows[backend] = row
+        ledger = build_ledger(tracer.log).report()
+        same = out.read_text().splitlines() == want
+        emit("obs_linear", backend=backend, reads=s["reads"],
+             mapped=s["mapped"], position_correct=s["correct"],
+             reads_per_s=s["reads_per_s"], identical_to_untraced=same,
+             coverage=attrib["coverage"],
+             serial_fraction=attrib["serial_fraction"],
+             n_flushes=attrib["n_flushes"],
+             stages={r["stage"]: {k: r[k] for k in
+                                  ("calls", "total_s", "frac", "p50_ms",
+                                   "p99_ms")} for r in attrib["stages"]},
+             device_spec=roof["device_spec"], roofline=row,
+             endpoints=reader.got, trace_spans=len(spans),
+             launches=counts, card=card_line())
+        check(same, f"{backend}: traced PAF rows differ from the untraced run")
+        check(s["mapped"] >= 0.9 * s["reads"], f"obs {backend}: mapped < 90%")
+        check(attrib["coverage"] >= 0.9 and ledger.coverage >= 0.9,
+              f"{backend}: stage coverage {attrib['coverage']}")
+        check(all(g["status"] == 200 for g in reader.got.values()),
+              f"{backend}: endpoint statuses {reader.got}")
+        check(0 < len(spans) <= 64, f"{backend}: /trace?n=64 gave {len(spans)}")
+        check(roof["device_spec"]["name"] == "h100_sxm",
+              f"device spec {roof['device_spec']}")
+        check(row["measure_error"] is None, f"measure error {row}")
+        check(row["measured_launches"] == n_windows(160) == 6,
+              f"{backend}: {row['measured_launches']} DC kernel records for "
+              f"one call at cap 160")
+        check(row["pct_of_roof_kernel"] is not None
+              and 0 < row["pct_of_roof_kernel"] <= 1.05,
+              f"{backend}: pct_of_roof_kernel {row['pct_of_roof_kernel']}")
+    return rows
+
+
+def union_s(intervals) -> float:
+    """Seconds covered by the union of ``(start_ns, end_ns)`` intervals."""
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total / 1e9
+
+
+def idle_share(torch, ops, sg, svc) -> dict:
+    """The card's idle share of a flush: serve the first 1,536 reads of
+    ``svc`` on cuda_dc_v2, one 256-read flush at a time, and profile
+    flushes 2 and 5 with the CUDA activity only and flush 3 with the CPU
+    activity too (flushes 0, 1 and 4 unprofiled): the union of the
+    card's kernel intervals over each flush span's wall time.  The CPU
+    activity slows the host; the CUDA-only flushes are the measurement,
+    the unprofiled ones the profiler's cost."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import Tracer
+    from repro_torch.obs.roofline import device_records
+
+    # a flush deadline past the quantum's submission: one full flush each
+    cfg = sg.engine_config(sg.parse_args(FULL_ARGS + [
+        "--align-backend", "cuda_dc_v2", "--max-delay-ms", "1000"]))
+    tracer = Tracer()
+    flushes = []
+    activities = {"cuda": [ProfilerActivity.CUDA],
+                  "cpu+cuda": [ProfilerActivity.CPU, ProfilerActivity.CUDA]}
+    with sg.ServeEngine(svc.index, cfg, tracer=tracer) as engine:
+        for q, mode in enumerate(IDLE_PROFILES):
+            before = ops.launch_counts()["window_dc_batch_v2"]
+            n_before = sum(sp.name == "flush" for sp in tracer.log.spans())
+            with profile(activities=activities[mode]) if mode \
+                    else contextlib.nullcontext() as prof:
+                sg.run_offline(engine, svc.reads,
+                               list(range(q * IDLE_BATCH, (q + 1) * IDLE_BATCH)),
+                               batch=IDLE_BATCH, lease_s=600.0,
+                               row_fn=svc.row_fn)
+                engine.drain()  # the flush span has closed
+                torch.cuda.synchronize()
+            spans = [sp for sp in tracer.log.spans() if sp.name == "flush"]
+            row = {"flush": q, "profiled": mode,
+                   "flushes": len(spans) - n_before,
+                   "flush_s": spans[-1].duration_s,
+                   "v2_launches": ops.launch_counts()["window_dc_batch_v2"]
+                   - before}
+            if mode:
+                dev = device_records(prof)
+                kern = [r for r in dev
+                        if not r[0].startswith(("Memcpy", "Memset"))]
+                busy = union_s(r[1:] for r in kern)
+                busy_all = union_s(r[1:] for r in dev)
+                row.update(
+                    kernel_records=len(kern), copy_records=len(dev) - len(kern),
+                    dc_records=sum("dc_wave_v2" in r[0] for r in kern),
+                    kernel_busy_s=busy, device_busy_s=busy_all,
+                    idle_share=1 - busy / row["flush_s"],
+                    idle_share_with_copies=1 - busy_all / row["flush_s"])
+            flushes.append(row)
+    cuda_only = [f["idle_share"] for f in flushes if f["profiled"] == "cuda"]
+    emit("idle_share", backend="cuda_dc_v2", batch=IDLE_BATCH,
+         idle_share_cuda_only=cuda_only,
+         idle_share_cpu_cuda=[f["idle_share"] for f in flushes
+                              if f["profiled"] == "cpu+cuda"],
+         unprofiled_flush_s=[f["flush_s"] for f in flushes[1:]
+                             if not f["profiled"]],
+         flushes=flushes, card=card_line())
+    for f in flushes:
+        check(f["flushes"] == 1 and f["v2_launches"] == 6,
+              f"flush {f['flush']}: {f['flushes']} flushes, "
+              f"{f['v2_launches']} v2 launches")
+        if f["profiled"]:
+            check(f["dc_records"] == f["v2_launches"],
+                  f"flush {f['flush']}: {f['dc_records']} dc_wave_v2 records "
+                  f"for {f['v2_launches']} launches")
+            check(0 <= f["idle_share"] <= 1,
+                  f"flush {f['flush']}: idle share {f['idle_share']}")
+    return flushes
+
+
+def tracer_cost(sg, svc) -> list[dict]:
+    """What the obs plane costs a run that serves: the first 256 reads
+    (one flush) on cuda_dc_v2, eight runs, untraced and traced (a tracer
+    and a roofline manager, no endpoint and no measured run) in the
+    order of `COST_ORDER`, so that a drift of the host's speed falls on
+    both alike; the PAF rows of all eight identical."""
+    from repro_torch.obs import DeviceSpec, RooflineManager, Tracer
+
+    runs = []
+    for i, traced in enumerate(COST_ORDER):
+        out = OUT / f"obs_cost_{i}.paf"
+        args = sg.parse_args(FULL_ARGS + [
+            "--reads", str(COST_READS), "--device", "cuda",
+            "--align-backend", "cuda_dc_v2", "--out", str(out)])
+        kw = {}
+        if traced:
+            kw["tracer"] = Tracer()
+            kw["roofline"] = RooflineManager(
+                spec=DeviceSpec.for_device("cuda:0"), device="cuda:0",
+                tracer=kw["tracer"])
+        s = sg.serve(svc, args, **kw)
+        m = s["metrics"]
+        runs.append({"traced": traced, "reads_per_s": s["reads_per_s"],
+                     "seconds": s["seconds"],
+                     "seed_filter_s": m["stage_seed_filter_s"],
+                     "align_s": m["stage_align_s"],
+                     "rows": out.read_text()})
+    same = len({r.pop("rows") for r in runs}) == 1
+    median = {t: statistics.median(r["reads_per_s"] for r in runs
+                                   if r["traced"] == t) for t in (False, True)}
+    emit("obs_cost", backend="cuda_dc_v2", reads=COST_READS, runs=runs,
+         median_reads_per_s={"untraced": median[False], "traced": median[True]},
+         traced_over_untraced=median[True] / median[False],
+         identical=same, card=card_line())
+    check(same, "tracing changed the PAF rows")
+    return runs
+
+
+def obs_child() -> int:
+    """``chip_smoke.py --obs-child``: the obs phase's profiled runs, in a
+    fresh process.  `torch.profiler` returns fewer kernel records than
+    launches late in a process that has made many small launches (the
+    kernel phase's plain versions), so the runs it counts have a CUDA
+    context of their own: the idle share, the tracer's cost, then the
+    linear deployment traced on each DC kernel."""
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_genomics as sg
+
+    # the serve phase's reads: a smaller --reads simulates other reads
+    svc = sg.setup(sg.parse_args(FULL_ARGS + ["--reads", str(FULL_READS),
+                                              "--device", "cuda"]))
+    idle_share(torch, ops, sg, svc)
+    tracer_cost(sg, svc)
+    obs_linear_phase(torch, ops, sg, svc, OUT / "full_cuda_dc_v2.paf")
+    return 0
+
+
+def word_ops_phase(torch) -> dict:
+    """The card's rate of the word operations the operations bounds count
+    (`repro_torch.kernels.word_ops`, `csrc/word_ops.cu`): each mix held
+    against its plain version on a short run, then timed; the larger rate
+    beside `h100_sxm.json`'s ``peak_word_ops``, which every operations
+    bound of this script divides by."""
+    from repro_torch.kernels import word_ops
+
+    dev = torch.device("cuda", 0)
+    check(word_ops.shape() == {"nw": word_ops.NW, "rows": word_ops.ROWS,
+                               "windows": word_ops.WINDOWS, "threads": 256},
+          f"csrc/word_ops.cu constants {word_ops.shape()}")
+    rates = {}
+    for mix in word_ops.MIXES:
+        got = word_ops.word_ops_chain(mix, 16, 1000, device=dev).cpu()
+        want = word_ops.word_ops_chain(mix, 16, 1000, device="cpu")
+        check(torch.equal(got, want),
+              f"word_ops {mix}: the kernel differs from its plain version")
+        rates[mix] = word_ops.rate(mix, device=dev)
+    measured = max(r["ops_per_s"] for r in rates.values())
+    spec = int32_ops_per_s()
+    emit("peak_word_ops", rates=rates, measured_ops_per_s=measured,
+         spec_ops_per_s=spec, measured_over_spec=measured / spec,
+         clocks_sm=card_line("clocks.sm,clocks.max.sm"), card=card_line())
+    return rates
+
+
+def obs_phase(torch, sg) -> None:
+    """The observability plane on the card: the word-op rate and the
+    launcher's flags here, then `obs_child` in a child process (its lines
+    are relayed)."""
+    t_phase = time.perf_counter()
+    word_ops_phase(torch)
+    obs_cli_phase(sg)
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--obs-child"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    print(proc.stdout, end="", flush=True)
+    check(proc.returncode == 0,
+          f"obs child exited {proc.returncode}: {proc.stderr[-3000:]}")
+    emit("obs_done", seconds=time.perf_counter() - t_phase)
+
+
 # ------------------------------------------------------- graph serving ----
 def golden_graph_phase(sg) -> None:
     want = GOLDEN_GAF.read_bytes()
@@ -741,6 +1105,24 @@ def graph_serve_phase(torch, ops, sg) -> dict:
          align_s=mo.get("stage_align_s"), launches=ops.launch_counts())
     check(so["mapped"] >= 0.9 * so["reads"], "online graph: mapped < 90%")
     check(so["correct"] >= 0.9 * so["reads"], "online graph: correct < 90%")
+
+    # traced (attribution only: the graph backends have no roofline model)
+    from repro_torch.obs import Tracer
+
+    st = sg.serve(svc, sg.parse_args(GRAPH_ARGS + [
+        "--reads", str(OBS_GRAPH_READS), "--device", "cuda",
+        "--align-backend", "graph_cuda"]), tracer=Tracer())
+    stages = {r["stage"]: {k: r[k] for k in ("calls", "total_s", "frac")}
+              for r in st["attrib"]["stages"]}
+    same = st["rows"] == [r for r in s["rows"] if r["gid"] < OBS_GRAPH_READS]
+    emit("obs_graph", backend="graph_cuda", reads=st["reads"],
+         reads_per_s=st["reads_per_s"], identical_to_untraced=same,
+         coverage=st["attrib"]["coverage"],
+         serial_fraction=st["attrib"]["serial_fraction"], stages=stages,
+         roofline_kernels=st["roofline"]["kernels"] if st["roofline"] else None)
+    check(same, "traced graph rows differ from the untraced run")
+    check({"prefilter", "dc_filter", "align"} <= set(stages),
+          f"graph attribution stages {sorted(stages)}")
 
     # the first 256 reads on the CPU, plain path, on the card's index
     gidx = svc.index.index
@@ -1183,7 +1565,8 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
-    emit("card", nvidia_smi=card, torch=torch.__version__,
+    emit("card", nvidia_smi=card, max_sm_clock=card_line("clocks.max.sm"),
+         torch=torch.__version__,
          cuda=torch.version.cuda, python=sys.version.split()[0],
          device_name=torch.cuda.get_device_name(0),
          device_count=torch.cuda.device_count())
@@ -1201,6 +1584,7 @@ def main() -> int:
     rows = kernel_phase(torch, np, ops, dev)
     golden_phase(sg)
     launches, one_shard_rps = serve_phase(torch, ops, sg)
+    obs_phase(torch, sg)
     golden_graph_phase(sg)
     graph = graph_serve_phase(torch, ops, sg)
     launches["bitalign_dc_batch"] = graph["bitalign_dc_batch"]
@@ -1236,4 +1620,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(obs_child() if sys.argv[1:] == ["--obs-child"] else main())

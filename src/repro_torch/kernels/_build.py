@@ -58,6 +58,15 @@ SIGNATURES = {
         #  per block, words a lane, lanes a pair, warps a pair)
         "myers_distance_geometry": ((_I, _I, _I, _P), _I),
     },
+    "word_ops": {
+        # (out, threads, n, device, stream)
+        "word_ops_dc": ((_P, _I, _I, _I, _P), _I),
+        # (out, threads, n, cin, off, device, stream)
+        "word_ops_myers": ((_P, _I, _I, ctypes.c_uint, _I, _I, _P), _I),
+        # (out int[4]: words a window, DC rows, windows a thread, threads
+        #  a block)
+        "word_ops_shape": ((_P,), _I),
+    },
 }
 
 

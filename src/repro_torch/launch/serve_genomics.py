@@ -2,8 +2,8 @@
 
 Port of `repro.launch.serve_genomics`.  ``--mode linear``
 maps against a linear reference and emits PAF; ``--mode graph`` builds a
-variation-graph index (``ref_len // 200`` simulated variants) and emits
-GAF (node path + CIGAR) through the
+variation-graph index (``--variants``, default ``ref_len // 200``
+simulated variants) and emits GAF (node path + CIGAR) through the
 ``graph_torch``/``graph_cuda`` backends.  Both serving modes sit on the
 same `repro_torch.serve` micro-batching engine, so they produce
 identical output for the same read set:
@@ -18,6 +18,11 @@ identical output for the same read set:
 output; ``--align-sharded`` cuts the align stage into per-shard blocks
 and ``--pipelined`` keeps one flush in flight.
 
+``--trace-out`` traces every flush (Perfetto JSON, the per-stage
+Amdahl table and one roofline line per align site on exit) and
+``--http-port`` serves ``/metrics /healthz /trace /attrib /roofline``
+while the engine runs (`repro_torch.obs`).
+
 ``--device`` (default ``cuda``) picks where the index, the mapper and
 the kernels run: one device for every shard, or a comma-separated list
 of one device per shard (a bare ``cuda`` spreads the shards over the
@@ -28,10 +33,12 @@ cpu`` to run the plain PyTorch versions on the CPU.
     python -m repro_torch.launch.serve_genomics --reads 64 --out out.paf
     python -m repro_torch.launch.serve_genomics --mode graph --out out.gaf
     python -m repro_torch.launch.serve_genomics --num-shards 2 --pipelined
+    python -m repro_torch.launch.serve_genomics --trace-out t.json --http-port 0
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import time
 from typing import NamedTuple
@@ -43,7 +50,10 @@ from repro_torch.core.genasm import GenASMConfig
 from repro_torch.dist.fault import WorkQueue
 from repro_torch.genomics import io, simulate
 from repro_torch.graph import index as graph_index
-from repro_torch.serve import EngineConfig, ServeEngine, Session, poisson_load
+from repro_torch.obs import (DeviceSpec, ObsServer, RooflineManager, Tracer,
+                             build_ledger, render_report)
+from repro_torch.serve import (EngineConfig, Metrics, ServeEngine, Session,
+                               poisson_load)
 from repro_torch.shard import resolve_devices
 
 
@@ -135,12 +145,17 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="work-queue lease; expired leases are stolen")
     ap.add_argument("--mode", default="linear", choices=("linear", "graph"),
                     help="linear reference → PAF, or variation graph → GAF")
+    ap.add_argument("--variants", type=int, default=None,
+                    help="--mode graph: simulated variant count "
+                         "(default max(ref_len // 200, 4))")
     ap.add_argument("--align-backend", default="auto",
                     help="repro_torch.align backend: auto|ref|torch|cuda_dc|"
                          "cuda_dc_v2|graph_torch|graph_cuda (auto = cuda_dc "
                          "on a CUDA device, torch on the CPU, graph twins "
                          "under --mode graph; env REPRO_ALIGN_BACKEND "
                          "overrides auto)")
+    ap.add_argument("--use-kernel", action="store_true",
+                    help="deprecated alias for --align-backend cuda_dc")
     ap.add_argument("--num-shards", type=int, default=1,
                     help="shard the reference index N ways (repro_torch.shard "
                          "scatter/merge, one device per shard when --device "
@@ -166,7 +181,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="length-bucket ladder of pattern caps")
     ap.add_argument("--max-delay-ms", type=float, default=5.0,
                     help="micro-batch flush deadline")
-    return ap.parse_args(argv)
+    ap.add_argument("--trace-out", default=None,
+                    help="trace every flush and write Perfetto/Chrome "
+                         "trace_event JSON here (plus the per-stage "
+                         "Amdahl table on exit)")
+    ap.add_argument("--http-port", type=int, default=None,
+                    help="serve /metrics /healthz /trace /attrib /roofline "
+                         "on this port while running (0 = ephemeral)")
+    args = ap.parse_args(argv)
+    if args.use_kernel and args.align_backend != "auto":
+        ap.error("--use-kernel is a deprecated alias for --align-backend "
+                 "cuda_dc; don't combine it with an explicit "
+                 "--align-backend")
+    return args
 
 
 class Service(NamedTuple):
@@ -178,6 +205,7 @@ class Service(NamedTuple):
     index: object  # EpochedIndex (linear) or EpochedGraphIndex (graph)
     config: EngineConfig
     index_s: float  # seconds to build the index (graph included)
+    variants: int | None  # simulated variants of the graph (None: linear)
 
     def row_fn(self, gid: int, res) -> dict:
         """The output row of one mapped read: GAF or PAF."""
@@ -197,7 +225,7 @@ def engine_config(args: argparse.Namespace) -> EngineConfig:
         buckets=buckets, max_batch=args.batch,
         max_delay_s=args.max_delay_ms / 1e3,
         genasm=GenASMConfig(),
-        align_backend=args.align_backend,
+        align_backend="cuda_dc" if args.use_kernel else args.align_backend,
         workload=args.mode,
         filter_k=max(8, int(args.read_len * prof.error_rate * 1.5)),
         num_shards=args.num_shards,
@@ -213,6 +241,14 @@ PER_RUN_FIELDS = ("max_batch", "max_delay_s", "align_backend", "num_shards",
                   "align_sharded", "pipelined")
 
 
+def variant_count(args: argparse.Namespace) -> int | None:
+    """Simulated variants of the ``--mode graph`` reference (None: linear)."""
+    if args.mode != "graph":
+        return None
+    return (args.variants if args.variants is not None
+            else max(args.ref_len // 200, 4))
+
+
 def setup(args: argparse.Namespace) -> Service:
     """Simulate the reference and reads from their seeds, index the
     reference on (the first device of) ``--device`` and derive the engine
@@ -224,8 +260,8 @@ def setup(args: argparse.Namespace) -> Service:
                                  read_len=args.read_len, profile=prof, seed=2)
     cfg = engine_config(args)
     t0 = time.perf_counter()
-    if args.mode == "graph":
-        n_var = max(args.ref_len // 200, 4)
+    n_var = variant_count(args)
+    if n_var is not None:
         variants = simulate.simulate_variants(
             ref, n_snp=n_var // 2, n_ins=n_var // 4, n_del=n_var // 4, seed=3)
         print(f"indexing variation graph ({args.ref_len} bp backbone, "
@@ -238,7 +274,8 @@ def setup(args: argparse.Namespace) -> Service:
         epi = minimizer_index.build_epoched_index(ref, w=8, k=12,
                                                   device=device)
     index_s = time.perf_counter() - t0
-    return Service(args.ref_len, rs.reads, rs.true_pos, epi, cfg, index_s)
+    return Service(args.ref_len, rs.reads, rs.true_pos, epi, cfg, index_s,
+                   n_var)
 
 
 def main(argv=None) -> dict:
@@ -247,25 +284,53 @@ def main(argv=None) -> dict:
     return serve(setup(args), args)
 
 
-def serve(svc: Service, args: argparse.Namespace) -> dict:
+def serve(svc: Service, args: argparse.Namespace, *,
+          tracer: Tracer | None = None,
+          roofline: RooflineManager | None = None,
+          metrics: Metrics | None = None) -> dict:
     """Serve the first ``args.reads`` reads of ``svc`` offline or online
     (``args.online``) and write ``args.out``; returns a summary.  One
-    `setup` can serve several runs: the reads of a smaller ``--reads``
-    are the first reads of a larger one.
+    `setup` can serve several runs: a smaller ``--reads`` serves the
+    setup's first reads (not the reads a setup of that size simulates:
+    every read's errors are drawn after all the positions).
 
     The engine runs with the configuration that ``args`` ask for.  They
     may differ from ``svc``'s in `PER_RUN_FIELDS` only, and raise
-    otherwise."""
+    otherwise (the reference and its variants are ``svc``'s too).
+
+    ``tracer``, ``roofline`` and ``metrics`` go to the engine; with
+    ``--trace-out`` or ``--http-port`` and none given, the run makes its
+    own tracer and roofline manager.  The summary's ``attrib`` is the
+    Amdahl report and ``roofline`` the roofline table (without a new
+    profiled run), when traced."""
     cfg = engine_config(args)
     kept = {f: getattr(svc.config, f) for f in PER_RUN_FIELDS}
-    if dataclasses.replace(cfg, **kept) != svc.config:
+    if (dataclasses.replace(cfg, **kept) != svc.config
+            or (args.ref_len, variant_count(args))
+            != (svc.ref_len, svc.variants)):
         raise ValueError(f"these arguments need their own setup(): a serve "
                          f"run may change only {PER_RUN_FIELDS}")
     row_fn = svc.row_fn
     read_ids = np.arange(args.reads)
     rep = None
     devices = resolve_devices(args.device, args.num_shards)
-    with ServeEngine(svc.index, cfg, shard_devices=devices) as engine:
+    if args.trace_out or args.http_port is not None:
+        tracer = tracer if tracer is not None else Tracer()
+        if roofline is None:
+            roofline = RooflineManager(spec=DeviceSpec.for_device(devices[0]),
+                                       device=devices[0], tracer=tracer)
+    with contextlib.ExitStack() as stack:
+        engine = stack.enter_context(ServeEngine(
+            svc.index, cfg, metrics=metrics, tracer=tracer, roofline=roofline,
+            shard_devices=devices))
+        if roofline is not None:
+            roofline.metrics = engine.metrics
+        if args.http_port is not None:
+            obs = stack.enter_context(ObsServer(
+                metrics=engine.metrics, tracer=tracer, roofline=roofline,
+                port=args.http_port))
+            print(f"obs endpoints at {obs.url} "
+                  f"(/metrics /healthz /trace /attrib /roofline)")
         print(f"align backend: {engine.align_backend}")
         t0 = time.time()
         if args.online:
@@ -280,6 +345,23 @@ def serve(svc: Service, args: argparse.Namespace) -> dict:
         m = engine.metrics.snapshot()
         hit_rate = engine.cache.hit_rate
         backend = engine.align_backend
+
+    attrib = roof = None
+    if tracer is not None:
+        report = build_ledger(tracer.log).report()
+        attrib = report.to_dict()
+        print(render_report(report))
+    if roofline is not None:
+        # measure=False: no profiled kernel run at shutdown
+        roof = roofline.report(measure=False)
+        for row in roof["kernels"]:
+            print(f"roofline {row['kernel']}: "
+                  f"{row['achieved_ops_per_s'] / 1e9:.2f} Gop/s, "
+                  f"intensity {row['intensity']:.2f} op/B, "
+                  f"{row['pct_of_roof']:.2%} of roof")
+    if args.trace_out:
+        tracer.log.export_chrome(args.trace_out)
+        print(f"wrote {args.trace_out}")
 
     mapped = len(rows)
     correct = sum(
@@ -305,6 +387,7 @@ def serve(svc: Service, args: argparse.Namespace) -> dict:
         "p50_ms": rep.p50_ms if rep else None,
         "p99_ms": rep.p99_ms if rep else None,
         "align_backend": backend, "metrics": m, "index_s": svc.index_s,
+        "attrib": attrib, "roofline": roof,
     }
 
 

@@ -24,8 +24,7 @@ The log exports two ways:
   sink for offline analysis.
 
 Everything is stdlib; a disabled tracer (`NULL_TRACER`) costs one
-attribute check per call site.  Copied from `repro.obs.trace` (without
-its ``StageTimer``, which no executor of the port uses).
+attribute check per call site.  Copied from `repro.obs.trace`.
 """
 from __future__ import annotations
 
@@ -267,3 +266,25 @@ class Tracer:
 
 NULL_TRACER = Tracer(enabled=False)
 
+
+class StageTimer:
+    """Per-call stage clock executors use to fill their ``last_times``.
+
+    Records ``(stage, t_start, t_end, attrs)`` tuples — the engine (or a
+    benchmark) replays them into a `Tracer` via ``add()``.  Callers must
+    block on the stage's device work inside the ``stage()`` scope
+    (``torch.cuda.synchronize``) or the interval only measures the
+    asynchronous launches.
+    """
+
+    def __init__(self) -> None:
+        self.times: list[tuple[str, float, float, dict]] = []
+
+    @contextmanager
+    def stage(self, name: str, **attrs):
+        """Scope one stage: appends ``(name, t0, t1, attrs)`` on exit."""
+        t0 = time.monotonic()
+        try:
+            yield
+        finally:
+            self.times.append((name, t0, time.monotonic(), attrs))

@@ -23,6 +23,11 @@ when it reaches ``max_batch`` *or* its oldest read has waited
   ``pipelined`` dispatches each flush without waiting for it and
   finishes it after the next one is dispatched (one batch in flight).
 
+* **Observability** — an optional `Tracer` gets a ``flush`` span per
+  flush with the executor's stage windows replayed as its children;
+  an optional `repro_torch.obs.RooflineManager` gets each linear
+  flush's align interval and the site's analytic kernel counters.
+
 Results are memoized in an LRU keyed on ``(read digest, index epoch
 token)`` (`cache.py`) — a scalar epoch for a single-device index, the
 ``(layout, epoch vector)`` token for a sharded one; refreshing the
@@ -38,6 +43,7 @@ thread's current device.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from concurrent.futures import Future
@@ -54,6 +60,7 @@ from repro_torch.core.minimizer_index import EpochedIndex, ReferenceIndex
 from repro_torch.genomics import encode
 from repro_torch.graph.index import EpochedGraphIndex, GraphIndex
 from repro_torch.graph.mapper import GraphMapExecutor, graph_backend_name
+from repro_torch.obs.roofline import RooflineManager
 from repro_torch.obs.trace import NULL_TRACER, Tracer
 
 from .cache import ResultCache, read_digest
@@ -186,10 +193,17 @@ class ServeEngine:
     device per shard (`repro_torch.shard.resolve_devices`)."""
 
     def __init__(self, index, config: EngineConfig = EngineConfig(),
+                 metrics: Metrics | None = None,
                  tracer: Tracer | None = None,
+                 roofline: RooflineManager | None = None,
                  shard_devices: Sequence | None = None):
         self.config = config
+        # NULL_TRACER's span()/add()/event() are near-free no-ops, so the
+        # untraced hot path stays untaxed
         self.tracer = tracer if tracer is not None else NULL_TRACER
+        # optional per-flush analytic kernel counters keyed by this
+        # engine's align dispatch sites (linear workload)
+        self.roofline = roofline
         if config.num_shards > 1:
             index = self._sharded_index(index, shard_devices)
         elif config.workload == "graph":
@@ -223,7 +237,7 @@ class ServeEngine:
         else:
             self.align_backend = align_dispatch.resolve_backend(
                 config.align_backend, self.device).name
-        self.metrics = Metrics()
+        self.metrics = metrics if metrics is not None else Metrics()
         self.cache = ResultCache(config.cache_capacity)
         self._queues: dict[int, list[_Request]] = {c: [] for c in config.buckets}
         self._executors: dict[tuple, object] = {}
@@ -513,7 +527,8 @@ class ServeEngine:
             index, epoch = self.index.current()
             fn = self._executor(cap, index.layout_key, sharded_index=index)
             arr, lens = self._encode(cap, reqs)
-            pending = fn.start(index.parts, arr, lens, timed=False)
+            with self._device_work():
+                pending = fn.start(index.parts, arr, lens, timed=False)
             self._pending = _PendingFlush(cap, reqs, fn, pending, epoch,
                                           lens, t_flush)
         except BaseException:
@@ -529,21 +544,19 @@ class ServeEngine:
 
     def _finish_flush(self, state: _PendingFlush) -> None:
         """Wait for a dispatched flush and deliver its results."""
-        c, tr, m = self.config, self.tracer, self.metrics
+        c, tr = self.config, self.tracer
         cap, reqs = state.cap, state.reqs
         try:
-            with tr.span("flush", bucket_cap=cap, batch=len(reqs),
-                         workload=c.workload, shards=c.num_shards,
-                         pipelined=True):
+            with self._device_work(), tr.span(
+                    "flush", bucket_cap=cap, batch=len(reqs),
+                    workload=c.workload, shards=c.num_shards, pipelined=True):
                 if tr.enabled:
                     for r in reqs:
                         tr.add("enqueue_wait", r.t_submit, state.t_flush,
                                bucket_cap=cap, async_=True)
                 res, times = state.fn.finish(state.pending)
                 state.fn.last_times = list(times)
-                for name, t0, t1, attrs in times:
-                    tr.add(name, t0, t1, bucket_cap=cap, **attrs)
-                    m.counter(f"stage_{name}_s").inc(t1 - t0)
+                self._replay(cap, times)
                 self._deliver(cap, reqs, state.epoch, state.lens, res,
                               state.pending.stats)
         except BaseException as e:
@@ -597,8 +610,42 @@ class ServeEngine:
             for r, out in zip(reqs, results):
                 r.future.set_result(out)
 
+    def _device_work(self):
+        """Held around a flush while a roofline manager is attached: its
+        measured run must have the card to itself.  Taken before the
+        flush span opens, so a flush held back by a measurement shows
+        the wait in its reads' ``enqueue_wait``, not in its stages."""
+        rf = self.roofline
+        return rf.device_lock if rf is not None else contextlib.nullcontext()
+
+    def _replay(self, cap: int, times) -> None:
+        """Replay an executor's per-stage windows as child spans of the
+        open flush span and sum them per stage in the metrics.  A linear
+        flush's align interval also goes to the roofline manager, and
+        the align span carries the site's analytic counters."""
+        c, rf = self.config, self.roofline
+        kc = None
+        if rf is not None and rf.enabled and c.workload == "linear":
+            align_s = next((t1 - t0 for name, t0, t1, _ in times
+                            if name in ("align", "align_shard")), None)
+            kc = rf.record_flush(self.align_backend, cap, c.genasm.k,
+                                 c.max_batch, align_s=align_s)
+        for name, t0, t1, attrs in times:
+            if name in ("align", "align_shard") and kc is not None:
+                attrs = {**attrs, "word_ops": kc.word_ops,
+                         "hbm_bytes": kc.hbm_bytes}
+            self.tracer.add(name, t0, t1, bucket_cap=cap, **attrs)
+            self.metrics.counter(f"stage_{name}_s").inc(t1 - t0)
+
     def _execute(self, cap: int, reqs: list[_Request]) -> None:
-        c, tr, m = self.config, self.tracer, self.metrics
+        with self._device_work():
+            self._execute_flush(cap, reqs)
+        with self._cv:
+            self._inflight -= len(reqs)
+            self._cv.notify_all()
+
+    def _execute_flush(self, cap: int, reqs: list[_Request]) -> None:
+        c, tr = self.config, self.tracer
         t_flush = time.monotonic()
         with tr.span("flush", bucket_cap=cap, batch=len(reqs),
                      workload=c.workload, shards=c.num_shards):
@@ -622,13 +669,6 @@ class ServeEngine:
             with tr.span("encode", bucket_cap=cap):
                 arr, lens = self._encode(cap, reqs)
             res = fn(payload, arr, lens)
-            # replay the executor's per-stage windows as child spans of
-            # this flush, and sum them per stage in the metrics
-            for name, t0, t1, attrs in fn.last_times:
-                tr.add(name, t0, t1, bucket_cap=cap, **attrs)
-                m.counter(f"stage_{name}_s").inc(t1 - t0)
+            self._replay(cap, fn.last_times)
             self._deliver(cap, reqs, epoch, lens, res,
                           getattr(fn, "last_stats", None))
-        with self._cv:
-            self._inflight -= len(reqs)
-            self._cv.notify_all()

@@ -2,7 +2,8 @@
 
 A static scan of every module of `src/repro_torch/` and of
 `chip_smoke.py`, a fresh interpreter that imports each entry point (the
-service, the edit-distance and SeGraM modules), the service's refusal to
+service, the edit-distance and SeGraM modules, the obs plane's HTTP
+endpoint and roofline layer), the service's refusal to
 fall back to the CPU, and a scan of the port's tests for an in-process
 import of `repro.shard`.
 """
@@ -55,6 +56,12 @@ def test_entry_point_imports_no_jax_or_repro():
 @pytest.mark.parametrize("module", ["repro_torch.core.edit_distance",
                                     "repro_torch.core.segram.segram"])
 def test_use_case_module_imports_no_jax_or_repro(module):
+    _imports_nothing_forbidden(module)
+
+
+@pytest.mark.parametrize("module", ["repro_torch.obs.http",
+                                    "repro_torch.obs.roofline"])
+def test_obs_module_imports_no_jax_or_repro(module):
     _imports_nothing_forbidden(module)
 
 
