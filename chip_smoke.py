@@ -90,6 +90,18 @@ and sequence-to-graph read-mapping deployments end to end through
                  that loses shard 1 in the scatter and again between merge
                  and align and gives the fault-free result; every kernel
                  of the path (v1, v2, BitAlign at both sites) launched
+ 13. lm        — the model zoo's dense decoder LM (`repro_torch.models`,
+                 `train`, `ckpt`; plain PyTorch, no kernel of the port):
+                 reduced internlm2-1.8b with one set of weights on the card
+                 and the CPU (prefill logits, loss, 8 decode steps, greedy
+                 tokens, at the CPU tests' tolerances); full internlm2-1.8b
+                 (1,889.6 M parameters) serving 4 prompts of 2,048 tokens:
+                 prefill, 32 greedy tokens at max_len 2,080 twice (equal),
+                 prefill's last logits against step-by-step decode, the
+                 int8 KV cache teacher-forced on the same tokens; and the
+                 trainer's entry point (`python -m repro_torch.launch.train
+                 --arch internlm2-1.8b --steps 6 --seq 512 --batch 4`) in a
+                 subprocess, with checkpoints, then again to resume
 
 Each phase prints one JSON line.  The kernels line precedes the card's
 nvidia-smi line, and the last line is ``{"ok": true, "device": {...}}``.
@@ -219,6 +231,14 @@ OBS_READS, OBS_GRAPH_READS, COST_READS = 2048, 1024, 256
 COST_ORDER = (False, True, True, False, False, True, True, False)
 IDLE_BATCH = 256
 IDLE_PROFILES = (None, None, "cuda", "cpu+cuda", None, "cuda")
+# the lm phase: internlm2-1.8b; the CPU tests' tolerances (logits rtol/atol
+# 2e-2, loss 1e-2 absolute; tests/test_torch_lm_*.py)
+LM_ARCH = "internlm2-1.8b"
+LM_TOL, LM_LOSS_TOL = 2e-2, 1e-2
+LM_PARITY = dict(batch=2, seq=64, prompt=16, steps=8)
+LM_SERVE = dict(batch=4, prompt=2048, steps=32, int8_steps=8)
+LM_TRAIN_ARGS = ["--arch", LM_ARCH, "--steps", "6", "--seq", "512", "--batch",
+                 "4", "--ckpt-dir", "build/lm_ck", "--save-every", "3"]
 
 
 def emit(phase: str, **fields) -> None:
@@ -1542,6 +1562,255 @@ def segram_phase(torch, np, dev) -> None:
     check(correct.sum() >= 0.9 * SEGRAM_READS, "SeGraM: correct < 90%")
 
 
+# --------------------------------------------------- the dense LM ----
+def lm_near_tie(np, logits, tol: float) -> list[int]:
+    """Per row, the steps before the first whose top-2 margin is at most
+    2 * tol; ``logits`` is [B, steps, V].  Greedy tokens are compared up to
+    it, as the CPU tests compare them (tests/test_torch_lm_serve.py)."""
+    top2 = np.sort(logits, axis=-1)[..., -2:]
+    tied = top2[..., 1] - top2[..., 0] <= 2 * tol
+    return [int(np.argmax(t)) if t.any() else logits.shape[1] for t in tied]
+
+
+def lm_same_until(got, want, counts) -> bool:
+    """Generated tokens ([B, 1 + steps]) equal on each row's first counts[r]."""
+    return all(bool((got[r, 1: 1 + c] == want[r, 1: 1 + c]).all())
+               for r, c in enumerate(counts))
+
+
+def lm_parity_phase(torch, np, dev) -> None:
+    """reduced(internlm2-1.8b), one set of weights on the card and the CPU:
+    prefill logits, the loss, 8 decode steps and greedy tokens."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.models import model_zoo
+    from repro_torch.train import serve
+
+    cfg = reduced(get_config(LM_ARCH))
+    cpu = model_zoo.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    b, s, p, n = (LM_PARITY[k] for k in ("batch", "seq", "prompt", "steps"))
+    toks = np.random.default_rng(11).integers(0, cfg.vocab, (b, s + 1))
+    batch = {"tokens": toks[:, :s], "targets": toks[:, 1:],
+             "mask": np.ones((b, s), np.float32)}
+
+    def on(d, arrays):
+        return {k: torch.as_tensor(v, device=d, dtype=torch.float32
+                                   if k == "mask" else torch.int32)
+                for k, v in arrays.items()}
+
+    pre = [model_zoo.prefill_fn(cfg, m, on(d, batch)).cpu().numpy()
+           for m, d in ((cpu, "cpu"), (card, dev))]
+    with torch.no_grad():
+        loss = [float(model_zoo.loss_fn(cfg, m, on(d, batch))[0])
+                for m, d in ((cpu, "cpu"), (card, dev))]
+    prompt = {"tokens": toks[:, :p]}
+    want = serve.greedy_generate(cfg, cpu, on("cpu", prompt)["tokens"],
+                                 steps=n, max_len=p + n).numpy()
+    got = serve.greedy_generate(cfg, card, on(dev, prompt)["tokens"],
+                                steps=n, max_len=p + n).cpu().numpy()
+    # teacher-forced on the CPU's sequence: the logits of every decode step
+    seq = np.concatenate([toks[:, :p], want[:, 1:]], axis=1)
+    logits = []
+    for m, d in ((cpu, "cpu"), (card, dev)):
+        st = model_zoo.decode_state_init(cfg, b, p + n, device=d)
+        steps = []
+        for i in range(p + n - 1):
+            lo, st = model_zoo.decode_fn(cfg, m, st, on(d, {"tokens": seq[:, i: i + 1]}),
+                                         i)
+            steps.append(lo.cpu().numpy())
+        logits.append(np.stack(steps[p - 1:], axis=1))  # the n generated steps
+    compared = lm_near_tie(np, logits[0], LM_TOL)
+    ok_pre = np.allclose(pre[1], pre[0], rtol=LM_TOL, atol=LM_TOL)
+    ok_dec = np.allclose(logits[1], logits[0], rtol=LM_TOL, atol=LM_TOL)
+    same = lm_same_until(got, want, compared)
+    emit("lm_parity", arch=cfg.name, batch=b, seq=s, prompt=p, decode_steps=n,
+         prefill_max_abs_err=float(np.abs(pre[1] - pre[0]).max()),
+         loss_cpu=loss[0], loss_card=loss[1],
+         decode_max_abs_err=float(np.abs(logits[1] - logits[0]).max()),
+         greedy_compared_steps=compared,
+         greedy_equal_all_steps=bool((got == want).all()), tol=LM_TOL,
+         loss_tol=LM_LOSS_TOL, card=card_line())
+    check(ok_pre, "lm_parity: card prefill logits differ from the CPU's")
+    check(abs(loss[1] - loss[0]) <= LM_LOSS_TOL, "lm_parity: loss differs")
+    check(ok_dec, "lm_parity: card decode logits differ from the CPU's")
+    check(same, "lm_parity: greedy tokens differ before a near-tie")
+
+
+def lm_serve_phase(torch, np, dev) -> int:
+    """Full internlm2-1.8b on the card: a 4 x 2,048 prefill, then 32 greedy
+    tokens at max_len 2,080 (the prompt fed a token at a time, as
+    greedy_generate does), twice, and once more on the int8 KV cache.
+    Returns the parameter count."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo, transformer
+    from repro_torch.train import serve
+
+    cfg = get_config(LM_ARCH)
+    b, s0, n, n8 = (LM_SERVE[k] for k in ("batch", "prompt", "steps", "int8_steps"))
+    max_len = s0 + n
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = model_zoo.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    prompts = torch.as_tensor(
+        np.random.default_rng(12).integers(0, cfg.vocab, (b, s0)),
+        dtype=torch.int32, device=dev)
+    prefill = serve.build_prefill_step(cfg)
+    prefill_s = []
+    for _ in range(2):  # the first call pays the libraries' warm-up
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        pre = prefill(model, {"tokens": prompts})
+        torch.cuda.synchronize(dev)
+        prefill_s.append(time.perf_counter() - t)
+    check(pre.shape == (b, cfg.padded_vocab) and bool(torch.isfinite(pre).all()),
+          "lm_serve: prefill logits not finite or misshapen")
+
+    def greedy(steps, forced=None):
+        """serve.greedy_generate written out (on its GraphedDecode), keeping
+        each generated step's logits and the time of the prompt feed and of
+        the generation; with ``forced``, feeds those tokens instead of its
+        own argmax (teacher forcing)."""
+        st = model_zoo.decode_state_init(cfg, b, max_len, device=dev)
+        decode = serve.GraphedDecode(cfg, model, st)
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        for i in range(s0 - 1):
+            decode(prompts[:, i: i + 1], i)
+        torch.cuda.synchronize(dev)
+        feed_s = time.perf_counter() - t
+        tok, out, logits = prompts[:, -1:], [prompts[:, :1]], []
+        t = time.perf_counter()
+        for j in range(steps):
+            lo = decode(tok, s0 - 1 + j).clone()
+            logits.append(lo)
+            tok = torch.argmax(lo, dim=-1)[:, None].to(prompts.dtype)
+            out.append(tok)
+            if forced is not None:
+                tok = forced[:, 1 + j: 2 + j]
+        torch.cuda.synchronize(dev)
+        gen_s = time.perf_counter() - t
+        return torch.cat(out, 1), torch.stack(logits, 1), feed_s, gen_s
+
+    tokens, logits, feed_s, gen_s = greedy(n)
+    last = logits[:, 0].cpu().numpy()
+    pre = pre.cpu().numpy()
+    t = time.perf_counter()
+    again = serve.greedy_generate(cfg, model, prompts, steps=n, max_len=max_len)
+    torch.cuda.synchronize(dev)
+    greedy_s = time.perf_counter() - t
+    transformer.KV_INT8 = True
+    try:  # teacher-forced on the bf16 run's tokens, as tests/test_serving.py
+        tokens8, logits8, _, _ = greedy(n8, forced=tokens)
+    finally:
+        transformer.KV_INT8 = False
+    lo, lo8 = logits[:, :n8].cpu().numpy(), logits8.cpu().numpy()
+    compared8 = lm_near_tie(np, lo, LM_TOL)
+    same8 = lm_same_until(tokens8.cpu().numpy(), tokens.cpu().numpy(), compared8)
+    rel8 = float(np.abs(lo8 - lo).max() / np.abs(lo).max())
+    excess = np.abs(last - pre) / (LM_TOL + LM_TOL * np.abs(pre))
+    emit("lm_serve", arch=cfg.name, params=n_params, batch=b, prompt=s0,
+         steps=n, max_len=max_len, init_s=init_s, prefill_s=prefill_s,
+         prefill_tokens_per_s=b * s0 / prefill_s[-1],
+         prompt_feed_s=feed_s, prompt_feed_ms_per_token=1e3 * feed_s / (s0 - 1),
+         decode_ms_per_token=1e3 * gen_s / n, decode_tokens_per_s=b * n / gen_s,
+         greedy_generate_s=greedy_s,
+         prefill_vs_decode_max_abs_err=float(np.abs(last - pre).max()),
+         prefill_vs_decode_worst_over_tol=float(excess.max()),
+         prefill_vs_decode_over_tol=int((excess > 1).sum()),
+         prefill_logits_max_abs=float(np.abs(pre).max()),
+         prefill_vs_decode_argmax_equal=bool(
+             (last.argmax(-1) == pre.argmax(-1)).all()),
+         runs_identical=bool(torch.equal(tokens, again)),
+         int8_steps=n8, int8_max_rel_err=rel8, int8_compared_steps=compared8,
+         int8_argmax_equal=int((tokens8[:, 1:] == tokens[:, 1: 1 + n8]).sum()),
+         int8_argmax_of=b * n8,
+         max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+         card=card_line())
+    # at 24 layers a logit's error is set by the hidden state's, not by the
+    # logit's own size: held to LM_TOL of the largest logit (the CPU tests'
+    # bound for hidden states), the elementwise excess reported above
+    check(np.abs(last - pre).max() <= LM_TOL * np.abs(pre).max(),
+          "lm_serve: prefill's last logits differ from step-by-step decode")
+    check(torch.equal(tokens, again), "lm_serve: two greedy runs differ")
+    check(rel8 < 0.05, "lm_serve: int8 KV logits off by >= 5% of the largest")
+    check(same8, "lm_serve: int8 KV argmax differs before a near-tie")
+    return n_params
+
+
+LM_STEP = re.compile(r"step\s+(\d+) loss=(\S+) acc=(\S+) gnorm=(\S+)")
+
+
+def lm_train_phase(torch, n_params: int) -> None:
+    """The trainer's entry point at full width and depth, in a subprocess,
+    then once more to resume from its last checkpoint."""
+    import math
+    import os
+    import shutil
+
+    ck = ROOT / LM_TRAIN_ARGS[LM_TRAIN_ARGS.index("--ckpt-dir") + 1]
+    shutil.rmtree(ck, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    runs = []
+    for i in range(2):
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *LM_TRAIN_ARGS],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+        (OUT / f"lm_train_{i}.log").write_text(proc.stdout + proc.stderr)
+        check(proc.returncode == 0,
+              f"lm_train run {i}: exit {proc.returncode}: {proc.stderr[-3000:]}")
+        runs.append((proc.stdout, time.perf_counter() - t))
+    out, wall = runs[0]
+    params = re.search(r"arch=(\S+) params=([0-9.]+)M", out)
+    steps = [(int(a), float(l), float(c), float(g))
+             for a, l, c, g in LM_STEP.findall(out)]
+    timing = dict(kv.split("=", 1) for kv in re.search(
+        r"timing: (.*)", out).group(1).split(" ") if "=" in kv)
+    saved = sorted(int(p.name.split("_")[1]) for p in ck.glob("step_*"))
+    resumed, wall2 = runs[1]
+    steps_n = int(LM_TRAIN_ARGS[LM_TRAIN_ARGS.index("--steps") + 1])
+    tokens = int(LM_TRAIN_ARGS[LM_TRAIN_ARGS.index("--batch") + 1]) * int(
+        LM_TRAIN_ARGS[LM_TRAIN_ARGS.index("--seq") + 1])
+    emit("lm_train", argv=LM_TRAIN_ARGS, wall_s=wall,
+         params_m=float(params.group(2)),
+         steps=[dict(step=a, loss=l, acc=c, gnorm=g) for a, l, c, g in steps],
+         step_s_median=float(timing["step_s_median"]),
+         tokens_per_s=float(timing["tokens_per_s"]), tokens_per_step=tokens,
+         peak_mem_bytes=int(timing["peak_mem_bytes"]), checkpoints=saved,
+         resume_wall_s=wall2, card=card_line())
+    check(params.group(1) == LM_ARCH and
+          abs(float(params.group(2)) - n_params / 1e6) < 0.05,
+          "lm_train: not the full configuration")
+    check([a for a, *_ in steps] == [0, steps_n - 1], "lm_train: step lines")
+    check(all(math.isfinite(v) for _, l, _, g in steps for v in (l, g)),
+          "lm_train: a loss or grad norm is not finite")
+    check(saved == [3, 6], f"lm_train: checkpoints {saved}")
+    check(f"done: {steps_n} steps" in out, "lm_train: no done line")
+    check(f"resumed from step {steps_n}" in resumed and "done: 0 steps" in resumed
+          and not LM_STEP.findall(resumed), "lm_train: the resume")
+    shutil.rmtree(ck)
+
+
+def lm_phase(torch, np, dev) -> None:
+    """The model zoo's dense LM (`repro_torch.models`): parity with the CPU,
+    serving and training internlm2-1.8b at full size.  No kernel of the
+    port lies on this path: attention, the MLPs and the loss are plain
+    PyTorch, as the reference's are plain jnp."""
+    t_phase = time.perf_counter()
+    lm_parity_phase(torch, np, dev)
+    n_params = lm_serve_phase(torch, np, dev)
+    torch.cuda.empty_cache()  # the trainer's process needs the card's memory
+    lm_train_phase(torch, n_params)
+    emit("lm_done", seconds=time.perf_counter() - t_phase, card=card_line())
+
+
 def main() -> int:
     try:
         import torch
@@ -1602,6 +1871,7 @@ def main() -> int:
     launches["myers_distance_batch"] = edit_distance_phase(torch, np, ops, dev)
     prealign_filter_phase(torch, np, dev)
     segram_phase(torch, np, dev)
+    lm_phase(torch, np, dev)
     for name, n in launches.items():
         rows[name]["launches"] = n
     emit("done", seconds=time.perf_counter() - t_start)

@@ -1,0 +1,19 @@
+"""command-r-35b [dense]: 40L d_model=8192 64H (GQA kv=8) d_ff=22528
+vocab=256000 — GQA, no-bias.  [hf:CohereForAI/c4ai-command-r-v01; unverified]
+Cohere-style: parallel attention+MLP block, LayerNorm, tied embeddings."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="command-r-35b",
+    n_layers=40,
+    d_model=8192,
+    n_heads=64,
+    n_kv_heads=8,
+    d_ff=22528,
+    vocab=256000,
+    act="silu_glu",
+    norm="layernorm",
+    parallel_block=True,
+    tie_embeddings=True,
+    rope_theta=8_000_000.0,
+)

@@ -1,1 +1,1 @@
-"""Distribution: host-side fault tolerance (the lease-based work queue)."""
+"""Distribution: host-side fault tolerance (work queue, heartbeat, restartable loop)."""

@@ -1,0 +1,163 @@
+"""GQA attention: blockwise training/prefill + cached decode.
+
+Port of `repro.models.attention`, step for step in plain PyTorch ops.
+Blockwise attention takes q blocks against the full KV and recomputes
+each block in the backward (``torch.utils.checkpoint`` in place of
+``jax.checkpoint``), so the [Sq, Sk] scores of only one block exist at
+a time.  Scores are taken in bf16, softmaxed in fp32 and cast back to
+the value dtype before the PV product, as in the reference.  Supports
+causal masking, sliding windows, logit softcap and non-causal mode.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from .layers import apply_rope, dense_init, holder
+
+NEG_INF = -1e30
+
+
+def attn_init(cfg, d_model=None, *, generator=None, device=None):
+    d = d_model or cfg.d_model
+    hd = cfg.hd
+    kw = dict(generator=generator, device=device)
+    p = dict(
+        wq=dense_init((d, cfg.n_heads, hd), **kw),
+        wk=dense_init((d, cfg.n_kv_heads, hd), **kw),
+        wv=dense_init((d, cfg.n_kv_heads, hd), **kw),
+        wo=dense_init((cfg.n_heads, hd, d), in_axis=(0, 1), **kw),
+    )
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((cfg.n_heads, hd), device=device)
+        p["bk"] = torch.zeros((cfg.n_kv_heads, hd), device=device)
+        p["bv"] = torch.zeros((cfg.n_kv_heads, hd), device=device)
+    return holder(**p)
+
+
+def _proj(x, w):
+    """einsum("bsd,dhk->bshk") as one matrix product."""
+    return (x @ w.to(x.dtype).flatten(1)).unflatten(-1, w.shape[1:])
+
+
+def _out(o, w):
+    """einsum("bshk,hkd->bsd") as one matrix product."""
+    return o.flatten(-2) @ w.to(o.dtype).flatten(0, 1)
+
+
+def _qkv(cfg, p, x, positions, rope=True):
+    dt = x.dtype
+    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    if cfg.qkv_bias:
+        q = q + p.bq.to(dt)
+        k = k + p.bk.to(dt)
+        v = v + p.bv.to(dt)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _q_block(qq, qp, k, v, k_pos, scale, causal, sliding_window, softcap):
+    # qq: [B, blk_q, hkv, g, dh]; qp: [blk_q] positions
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qq, k).float() * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    mask = torch.ones((qp.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                      device=s.device)
+    if causal:
+        mask &= qp[:, None] >= k_pos[None, :]
+    if sliding_window is not None:
+        mask &= qp[:, None] - k_pos[None, :] < sliding_window
+    s = torch.where(mask[None, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1).to(v.dtype)
+    return torch.einsum("bhgqk,bkhd->bqhgd", p, v)  # [B, blk_q, hkv, g, dh]
+
+
+def pick_blk_q(sq: int, blk_q: int = 512) -> int:
+    """The reference's block rule: the largest divisor of ``sq`` that is at
+    most ``blk_q``, preferring multiples of 128."""
+    blk_q = min(blk_q, sq)
+    aligned = [d for d in range(blk_q, 127, -128) if sq % d == 0]
+    if aligned:
+        return aligned[0]
+    while sq % blk_q:
+        blk_q -= 1
+    return blk_q
+
+
+def blockwise_attention(q, k, v, *, causal: bool, q_offset=0,
+                        sliding_window: int | None = None,
+                        softcap: float | None = None,
+                        blk_q: int = 512):
+    """Chunked attention: q blocks × full KV, rematerialized per block.
+
+    q: [B, Sq, H, Dh]; k/v: [B, Sk, Hkv, Dh].  Returns [B, Sq, H, Dh].
+    """
+    b, sq, h, dh = q.shape
+    sk, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    blk_q = pick_blk_q(sq, blk_q)
+    nq = sq // blk_q
+    scale = 1.0 / np.sqrt(dh)
+    qb = q.reshape(b, nq, blk_q, hkv, g, dh)
+    k_pos = torch.arange(sk, device=q.device)
+    q_pos = (q_offset + torch.arange(sq, device=q.device)).reshape(nq, blk_q)
+    outs = []
+    for i in range(nq):
+        args = (qb[:, i], q_pos[i], k, v, k_pos, scale, causal,
+                sliding_window, softcap)
+        if torch.is_grad_enabled():
+            outs.append(checkpoint(_q_block, *args, use_reentrant=False))
+        else:
+            outs.append(_q_block(*args))
+    out = torch.stack(outs, dim=1)  # [B, nq, blk_q, hkv, g, dh]
+    return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+def attention(cfg, p, x, positions, *, causal=True):
+    """Full attention layer (projections + blockwise core)."""
+    q, k, v = _qkv(cfg, p, x, positions)
+    out = blockwise_attention(
+        q, k, v, causal=causal, sliding_window=cfg.sliding_window,
+        softcap=cfg.attn_logit_softcap,
+    )
+    return _out(out, p.wo)
+
+
+def decode_attention(cfg, p, x, cache_k, cache_v, cache_pos, cache_len):
+    """Single-token decode against a KV cache.
+
+    x: [B, 1, D]; cache_k/v: [B, S, Hkv, Dh]; cache_pos: [S] the absolute
+    position stored in each cache slot (-1 = empty; ring layout for
+    sliding windows); cache_len: the current position, an int or a 0-d
+    integer tensor.  The cache scores and the new token's own score share
+    one softmax.
+    Returns (out [B, 1, D], new_k [B, 1, Hkv, Dh], new_v).
+    """
+    dt = x.dtype
+    b, s, hkv, dh = cache_k.shape
+    pos = torch.as_tensor(cache_len, device=x.device).reshape(1, 1).expand(b, 1)
+    q, k, v = _qkv(cfg, p, x, pos)
+    h = cfg.n_heads
+    g = h // hkv
+    scale = 1.0 / np.sqrt(dh)
+    qh = q.reshape(b, hkv, g, dh)
+    cp = cache_pos[None, :]
+    valid = (cp >= 0) & (cp < pos)
+    if cfg.sliding_window is not None:
+        valid &= (pos - cp) <= cfg.sliding_window
+    sc = torch.einsum("bhgd,bshd->bhgs", qh, cache_k).float() * scale
+    s_self = torch.einsum("bhgd,bhd->bhg", qh, k[:, 0]).float() * scale
+    if cfg.attn_logit_softcap:
+        cap = cfg.attn_logit_softcap
+        sc = cap * torch.tanh(sc / cap)
+        s_self = cap * torch.tanh(s_self / cap)
+    sc = torch.where(valid[:, None, None], sc, NEG_INF)
+    full = torch.cat([sc, s_self[..., None]], dim=-1)
+    w = torch.softmax(full, dim=-1).to(dt)
+    out = torch.einsum("bhgs,bshd->bhgd", w[..., :-1], cache_v) + \
+        w[..., -1][..., None] * v[:, 0][:, :, None, :]
+    y = _out(out.reshape(b, 1, h, dh).to(dt), p.wo)
+    return y, k, v

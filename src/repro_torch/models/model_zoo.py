@@ -1,0 +1,152 @@
+"""Config → model builder: init, loss, prefill, decode (the dense family).
+
+Port of `repro.models.model_zoo` for the decoder-only dense
+configurations (``models/transformer.py``); the encoder-decoder family
+waits for ``models/encdec.py`` (ROADMAP Queue 1).  ``params`` is a
+`transformer.DecoderLM`.  Everything that allocates runs on ``cuda``
+unless the caller passes ``device="cpu"``; without a card ``cuda``
+raises rather than falling back to the CPU.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from . import transformer
+from .layers import chunked_logits_xent
+
+
+def is_encdec(cfg: ModelConfig) -> bool:
+    return cfg.enc_layers > 0
+
+
+def _dense_only(cfg: ModelConfig) -> None:
+    if is_encdec(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder family waits for "
+            "models/encdec.py and cross_attention (ROADMAP Queue 1)")
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``, raising when it names CUDA and no card is
+    visible (no silent CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device}: no CUDA device is visible; "
+                           "pass device='cpu' to run on the CPU")
+    return dev
+
+
+def init(cfg: ModelConfig, generator: torch.Generator | None = None, *,
+         device="cuda") -> transformer.DecoderLM:
+    """Random weights from ``generator`` (default: seed 0 on ``device``)."""
+    _dense_only(cfg)
+    dev = resolve_device(device)
+    if generator is None and dev.type != "meta":
+        generator = torch.Generator(device=dev).manual_seed(0)
+    return transformer.DecoderLM(cfg, generator=generator, device=dev)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *, remat: bool = True, mesh=None,
+            sp: bool = False):
+    """batch: dict(tokens, targets, mask [, prefix_embeds])."""
+    _dense_only(cfg)
+    if cfg.frontend == "vision_stub":
+        hidden, aux = transformer.forward(
+            cfg, params, batch["tokens"], prefix_embeds=batch["prefix_embeds"],
+            remat=remat, mesh=mesh, sp=sp)
+        hidden = hidden[:, batch["prefix_embeds"].shape[1]:]  # loss on text only
+    else:
+        hidden, aux = transformer.forward(cfg, params, batch["tokens"],
+                                          remat=remat, mesh=mesh, sp=sp)
+    emb = (params.embed.tokens if cfg.tie_embeddings else params.lm_head.w.T)
+    xent, acc = chunked_logits_xent(hidden, emb, batch["targets"], batch["mask"])
+    return xent + aux, {"xent": xent, "aux": aux, "acc": acc}
+
+
+@torch.no_grad()
+def prefill_fn(cfg: ModelConfig, params, batch):
+    """Prefill: hidden-states forward; returns last-position logits."""
+    _dense_only(cfg)
+    prefix = batch["prefix_embeds"] if cfg.frontend == "vision_stub" else None
+    hidden, _ = transformer.forward(cfg, params, batch["tokens"],
+                                    prefix_embeds=prefix)
+    return transformer.logits_head(cfg, params, hidden[:, -1:])[:, -1]
+
+
+def decode_state_init(cfg: ModelConfig, batch: int, max_len: int, *,
+                      device="cuda"):
+    _dense_only(cfg)
+    return transformer.decode_state_init(cfg, batch, max_len,
+                                         device=resolve_device(device))
+
+
+@torch.no_grad()
+def decode_fn(cfg: ModelConfig, params, state, batch, pos):
+    """One token for the whole batch against the decode state (updated in
+    place and returned)."""
+    _dense_only(cfg)
+    return transformer.decode_step(cfg, params, state, batch["tokens"], pos)
+
+
+# --------------------------------------------------------------- batches ---
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
+    """``meta`` tensors standing in for every model input of a shape.
+
+    For ``decode`` shapes the KV state is part of the inputs (the serve
+    step's signature): one new token against a ``seq_len`` cache.
+    """
+    _dense_only(cfg)
+    B, S = shape.global_batch, shape.seq_len
+    fd = cfg.frontend_dim or cfg.d_model
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": _spec((B, S), torch.int32)}
+        if shape.kind == "train":
+            specs["targets"] = _spec((B, S), torch.int32)
+            specs["mask"] = _spec((B, S), torch.float32)
+        if cfg.frontend == "vision_stub":
+            specs["prefix_embeds"] = _spec((B, cfg.frontend_len or 256, fd),
+                                           torch.float32)
+        return {"batch": specs}
+    state = transformer.decode_state_init(cfg, B, S, device="meta")
+    return {"state": state, "batch": {"tokens": _spec((B, 1), torch.int32)}}
+
+
+def _sorted_leaves(tree, path=()):
+    """Leaves in the reference's pytree order (dict keys sorted)."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _sorted_leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def synth_batch(cfg: ModelConfig, shape: ShapeConfig, seed: int = 0, *,
+                device="cuda"):
+    """Concrete random batch matching ``input_specs``: the reference's numbers
+    (numpy ``default_rng(seed)``, drawn leaf by leaf in its order)."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    specs = input_specs(cfg, shape)
+    out: dict = {}
+    for path, s in _sorted_leaves(specs):
+        if s.dtype.is_floating_point:
+            a = torch.from_numpy(rng.normal(0, 0.02, size=s.shape)).to(s.dtype)
+        else:
+            a = torch.from_numpy(rng.integers(0, cfg.vocab, size=s.shape)).to(s.dtype)
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = a.to(dev)
+    if "mask" in out.get("batch", {}):
+        out["batch"]["mask"] = torch.ones_like(out["batch"]["mask"])
+    return out

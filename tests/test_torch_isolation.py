@@ -3,9 +3,9 @@
 A static scan of every module of `src/repro_torch/` and of
 `chip_smoke.py`, a fresh interpreter that imports each entry point (the
 service, the edit-distance and SeGraM modules, the obs plane's HTTP
-endpoint and roofline layer), the service's refusal to
-fall back to the CPU, and a scan of the port's tests for an in-process
-import of `repro.shard`.
+endpoint and roofline layer, the LM trainer), the service's and the
+trainer's refusal to fall back to the CPU, and a scan of the port's
+tests for an in-process import of `repro.shard`.
 """
 import ast
 import os
@@ -24,6 +24,23 @@ SOURCES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top in ("jax", "jaxlib", "repro")
+
+
+# the dense LM slice: every module it added is among the scanned sources
+LM_MODULES = ["configs/__init__.py", "configs/base.py", "configs/genasm.py",
+              "configs/internlm2_1_8b.py", "models/layers.py",
+              "models/attention.py", "models/frontends.py",
+              "models/transformer.py", "models/model_zoo.py",
+              "models/convert.py", "train/serve.py", "train/optimizer.py",
+              "train/loop.py", "ckpt/checkpoint.py", "dist/fault.py",
+              "launch/train.py"]
+
+
+def test_lm_modules_are_scanned():
+    scanned = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
+               for p in SOURCES[:-1]}
+    assert set(LM_MODULES) <= scanned, set(LM_MODULES) - scanned
+    assert len([p for p in scanned if p.startswith("configs/")]) == 13
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -63,6 +80,21 @@ def test_use_case_module_imports_no_jax_or_repro(module):
                                     "repro_torch.obs.roofline"])
 def test_obs_module_imports_no_jax_or_repro(module):
     _imports_nothing_forbidden(module)
+
+
+def test_lm_trainer_imports_no_jax_or_repro():
+    _imports_nothing_forbidden("repro_torch.launch.train")
+
+
+def test_lm_trainer_default_device_raises_without_cuda(tmp_path):
+    from repro_torch.launch import train
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible: the default --device cuda is valid")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "yi-6b", "--smoke", "--steps", "1",
+                    "--ckpt-dir", str(tmp_path / "ck")])
+    assert not (tmp_path / "ck").exists()
 
 
 def test_default_device_raises_without_cuda(tmp_path):
