@@ -80,9 +80,10 @@ and sequence-to-graph read-mapping deployments end to end through
                  (cuda_dc and cuda_dc_v2, offline and online; at 2 shards
                  --align-sharded and --pipelined too) and the golden GAF at
                  2 shards (graph_cuda); the 4,641,652 bp linear deployment
-                 at 2 shards, 8,192 reads on cuda_dc_v2, timed and
-                 --pipelined, each PAF identical to the 1-shard PAF of the
-                 serve phase; the graph deployment at 2 shards, 2,048
+                 at 2 shards, the first 2,048 of the serve phase's reads on
+                 cuda_dc_v2, timed and --pipelined, each PAF identical to
+                 those reads' rows of the serve phase's 1-shard PAF; the
+                 graph deployment at 2 shards, 2,048
                  reads, identical to the graph phase's first 2,048 rows;
                  the device merge equal to the host merge on the card (the
                  deployment's stage outputs, and seeded stages with forced
@@ -102,6 +103,25 @@ and sequence-to-graph read-mapping deployments end to end through
                  trainer's entry point (`python -m repro_torch.launch.train
                  --arch internlm2-1.8b --steps 6 --seq 512 --batch 4`) in a
                  subprocess, with checkpoints, then again to resume
+ 14. lm_zoo    — the rest of the model zoo (`repro_torch.models.moe`,
+                 `mamba`, `rwkv6`, `encdec`; plain PyTorch, no kernel of the
+                 port): the five reduced configs with one set of weights on
+                 the card and the CPU (prefill logits, loss and aux, 8
+                 decode steps teacher-forced, greedy tokens; the CPU tests'
+                 tolerances and MoE flip rule; jamba and RWKV-6 with fp32
+                 activations; mixtral's prompt past its reduced window);
+                 mixtral-8x7b at full width, 8 of 32 layers (a 4 x 2,048
+                 prefill, 32 greedy tokens after 128, twice; the choices
+                 dropped per layer) and trained in process at 2 layers;
+                 qwen3-moe-235b-a22b, 2 of 94 layers (a 4 x 1,024 prefill,
+                 16 greedy tokens); rwkv6-7b at full size (a 4 x 512
+                 prefill against step-by-step decode, 32 greedy tokens
+                 twice) and trained in process at 4 layers; jamba's Mamba
+                 layer alone at full width (apply on [2, 1,024] against
+                 1,024 decode steps); seamless-m4t-medium at full size
+                 (prefill with frames at 4 x 1,024, decode against its
+                 memory, the trainer's entry point in a subprocess and its
+                 resume)
 
 Each phase prints one JSON line.  The kernels line precedes the card's
 nvidia-smi line, and the last line is ``{"ok": true, "device": {...}}``.
@@ -223,7 +243,9 @@ FILTER_PAIRS = 256
 SEGRAM_READS, SEGRAM_CPU_READS = 256, 32
 SEGRAM_KW = dict(m_bits=128, k=16, win_len=192, max_candidates=4,
                  minimizer_w=8, minimizer_k=12)
-SHARD_GRAPH_READS, SHARD_DRILL_READS = 2048, 256
+# the sharded deployments serve the first 2,048 reads of the 1-shard runs
+# (8,192 reads took the run past half its time limit)
+SHARD_LINEAR_READS, SHARD_GRAPH_READS, SHARD_DRILL_READS = 2048, 2048, 256
 # the obs phase: linear reads traced, graph reads traced, reads a run of
 # the tracer's cost, and the idle share's 256-read flushes, each profiled
 # with the CUDA activity only ("cuda"), with the CPU's too, or not at all
@@ -239,6 +261,27 @@ LM_PARITY = dict(batch=2, seq=64, prompt=16, steps=8)
 LM_SERVE = dict(batch=4, prompt=2048, steps=32, int8_steps=8)
 LM_TRAIN_ARGS = ["--arch", LM_ARCH, "--steps", "6", "--seq", "512", "--batch",
                  "4", "--ckpt-dir", "build/lm_ck", "--save-every", "3"]
+# the lm_zoo phase: the other five LM configurations at their published
+# widths, depth cut to what one 80 GB card holds (parameters as the
+# reference's init counts them); the CPU tests' tolerances and flip rule
+# (tests/torch_lm_common.py): jamba and RWKV-6 compared card to CPU with
+# fp32 activations, a routing flip allowed below a top-k gap of 5e-2
+ZOO_ARCHS = ("mixtral-8x7b", "qwen3-moe-235b-a22b", "jamba-1.5-large-398b",
+             "rwkv6-7b", "seamless-m4t-medium")
+ZOO_FP32 = ("jamba-1.5-large-398b", "rwkv6-7b")
+ZOO_ROUTE_EPS, ZOO_AUX_TOL = 5e-2, 1e-3
+# mixtral's prompt runs past its reduced sliding window of 32
+ZOO_PARITY = dict(batch=2, seq=48, prompt=40, steps=8)
+MIXTRAL = dict(layers=8, batch=4, prefill=2048, prompt=128, steps=32,
+               train_layers=2, train_batch=4, train_seq=512, train_steps=4)
+QWEN = dict(layers=2, batch=4, prefill=1024, prompt=16, steps=16)
+RWKV = dict(batch=4, prompt=512, steps=32, train_layers=4, train_batch=4,
+            train_seq=512, train_steps=4)
+JAMBA_MAMBA = dict(batch=2, seq=1024)
+S2S = dict(batch=4, seq=1024, prefix=16)
+S2S_TRAIN_ARGS = ["--arch", "seamless-m4t-medium", "--steps", "4", "--seq",
+                  "512", "--batch", "4", "--ckpt-dir", "build/lm_ck_s2s",
+                  "--save-every", "2"]
 
 
 def emit(phase: str, **fields) -> None:
@@ -1283,32 +1326,40 @@ def shard_phase(torch, np, ops, sg, dev, graph, one_shard_rps) -> dict:
           and golden["bitalign_dc_batch"] > 0,
           "a kernel of the sharded golden runs was not launched")
 
-    # the linear deployment at 2 shards, timed and pipelined
-    one = (OUT / "full_cuda_dc_v2.paf").read_bytes()
+    # the linear deployment at 2 shards, timed and pipelined: the serve
+    # phase's first SHARD_LINEAR_READS reads, against their rows of its
+    # 1-shard PAF
+    one = paf_lines_below(OUT / "full_cuda_dc_v2.paf", SHARD_LINEAR_READS)
+    lsvc8k = sg.setup(sg.parse_args(FULL_ARGS + ["--reads", str(FULL_READS),
+                                                 "--device", "cuda"]))
     full = {}
     for extra in ((), ("--pipelined",)):
         tag = "shard2" + "".join(e.replace("--", "_") for e in extra)
         ops.reset_launch_counts()
-        s = sg.main(FULL_ARGS + ["--reads", str(FULL_READS), "--device",
-                                 "cuda", "--align-backend", "cuda_dc_v2",
-                                 "--num-shards", "2", *extra,
-                                 "--out", str(OUT / f"{tag}.paf")])
+        s = sg.serve(lsvc8k, sg.parse_args(
+            FULL_ARGS + ["--reads", str(SHARD_LINEAR_READS), "--device",
+                         "cuda", "--align-backend", "cuda_dc_v2",
+                         "--num-shards", "2", *extra,
+                         "--out", str(OUT / f"{tag}.paf")]))
         counts = ops.launch_counts()
         sites[tag] = counts
         m = s["metrics"]
         flushes = m.get("batches_flushed", 0)
         per_flush = {f"{st}_s_per_flush": m.get(f"stage_{st}_s", 0.0) / flushes
                      for st in ("scatter", "merge_device", "align")}
-        same = (OUT / f"{tag}.paf").read_bytes() == one
+        same = (OUT / f"{tag}.paf").read_text().splitlines() == one
         full[tag] = s["reads_per_s"]
         emit("shard_linear", shards=2, pipelined=bool(extra),
              backend="cuda_dc_v2", reads=s["reads"], mapped=s["mapped"],
              position_correct=s["correct"], seconds=s["seconds"],
-             reads_per_s=s["reads_per_s"], one_shard_reads_per_s=one_shard_rps,
+             reads_per_s=s["reads_per_s"],
+             one_shard_reads_per_s=one_shard_rps,
+             one_shard_reads=FULL_READS,
              flushes=flushes, **per_flush, identical_to_one_shard=same,
              launches=counts, card=card_line())
-        check(same, f"{tag}: PAF differs from the 1-shard PAF")
+        check(same, f"{tag}: PAF differs from the 1-shard PAF's rows")
         check(counts["window_dc_batch_v2"] > 0, f"{tag}: v2 not launched")
+    del lsvc8k
 
     # the graph deployment at 2 shards: the graph phase's first rows
     svc = graph["svc"]
@@ -1747,25 +1798,28 @@ def lm_serve_phase(torch, np, dev) -> int:
 LM_STEP = re.compile(r"step\s+(\d+) loss=(\S+) acc=(\S+) gnorm=(\S+)")
 
 
-def lm_train_phase(torch, n_params: int) -> None:
-    """The trainer's entry point at full width and depth, in a subprocess,
-    then once more to resume from its last checkpoint."""
+def lm_train_phase(torch, n_params: int, argv=LM_TRAIN_ARGS, saves=(3, 6),
+                   phase: str = "lm_train") -> None:
+    """The trainer's entry point (``argv``) in a subprocess, then once more
+    to resume from its last checkpoint; ``saves`` are the checkpoints the
+    first run leaves."""
     import math
     import os
     import shutil
 
-    ck = ROOT / LM_TRAIN_ARGS[LM_TRAIN_ARGS.index("--ckpt-dir") + 1]
+    arch = argv[argv.index("--arch") + 1]
+    ck = ROOT / argv[argv.index("--ckpt-dir") + 1]
     shutil.rmtree(ck, ignore_errors=True)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     runs = []
     for i in range(2):
         t = time.perf_counter()
         proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", *LM_TRAIN_ARGS],
+            [sys.executable, "-m", "repro_torch.launch.train", *argv],
             cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
-        (OUT / f"lm_train_{i}.log").write_text(proc.stdout + proc.stderr)
+        (OUT / f"{phase}_{i}.log").write_text(proc.stdout + proc.stderr)
         check(proc.returncode == 0,
-              f"lm_train run {i}: exit {proc.returncode}: {proc.stderr[-3000:]}")
+              f"{phase} run {i}: exit {proc.returncode}: {proc.stderr[-3000:]}")
         runs.append((proc.stdout, time.perf_counter() - t))
     out, wall = runs[0]
     params = re.search(r"arch=(\S+) params=([0-9.]+)M", out)
@@ -1775,26 +1829,26 @@ def lm_train_phase(torch, n_params: int) -> None:
         r"timing: (.*)", out).group(1).split(" ") if "=" in kv)
     saved = sorted(int(p.name.split("_")[1]) for p in ck.glob("step_*"))
     resumed, wall2 = runs[1]
-    steps_n = int(LM_TRAIN_ARGS[LM_TRAIN_ARGS.index("--steps") + 1])
-    tokens = int(LM_TRAIN_ARGS[LM_TRAIN_ARGS.index("--batch") + 1]) * int(
-        LM_TRAIN_ARGS[LM_TRAIN_ARGS.index("--seq") + 1])
-    emit("lm_train", argv=LM_TRAIN_ARGS, wall_s=wall,
+    steps_n = int(argv[argv.index("--steps") + 1])
+    tokens = int(argv[argv.index("--batch") + 1]) * int(
+        argv[argv.index("--seq") + 1])
+    emit(phase, argv=argv, wall_s=wall,
          params_m=float(params.group(2)),
          steps=[dict(step=a, loss=l, acc=c, gnorm=g) for a, l, c, g in steps],
          step_s_median=float(timing["step_s_median"]),
          tokens_per_s=float(timing["tokens_per_s"]), tokens_per_step=tokens,
          peak_mem_bytes=int(timing["peak_mem_bytes"]), checkpoints=saved,
          resume_wall_s=wall2, card=card_line())
-    check(params.group(1) == LM_ARCH and
+    check(params.group(1) == arch and
           abs(float(params.group(2)) - n_params / 1e6) < 0.05,
-          "lm_train: not the full configuration")
-    check([a for a, *_ in steps] == [0, steps_n - 1], "lm_train: step lines")
+          f"{phase}: not the full configuration")
+    check([a for a, *_ in steps] == [0, steps_n - 1], f"{phase}: step lines")
     check(all(math.isfinite(v) for _, l, _, g in steps for v in (l, g)),
-          "lm_train: a loss or grad norm is not finite")
-    check(saved == [3, 6], f"lm_train: checkpoints {saved}")
-    check(f"done: {steps_n} steps" in out, "lm_train: no done line")
+          f"{phase}: a loss or grad norm is not finite")
+    check(saved == list(saves), f"{phase}: checkpoints {saved}")
+    check(f"done: {steps_n} steps" in out, f"{phase}: no done line")
     check(f"resumed from step {steps_n}" in resumed and "done: 0 steps" in resumed
-          and not LM_STEP.findall(resumed), "lm_train: the resume")
+          and not LM_STEP.findall(resumed), f"{phase}: the resume")
     shutil.rmtree(ck)
 
 
@@ -1809,6 +1863,602 @@ def lm_phase(torch, np, dev) -> None:
     torch.cuda.empty_cache()  # the trainer's process needs the card's memory
     lm_train_phase(torch, n_params)
     emit("lm_done", seconds=time.perf_counter() - t_phase, card=card_line())
+
+
+# ---------------------------------------------- the rest of the zoo ----
+@contextlib.contextmanager
+def zoo_fp32(torch):
+    """``COMPUTE_DTYPE`` float32 in the port's model modules: the CPU tests'
+    fp32 activations for jamba and RWKV-6 (tests/torch_lm_common.py)."""
+    import importlib
+
+    mods = [importlib.import_module(f"repro_torch.models.{n}") for n in
+            ("layers", "transformer", "encdec", "mamba", "rwkv6", "model_zoo")]
+    saved = [(m, m.COMPUTE_DTYPE) for m in mods if hasattr(m, "COMPUTE_DTYPE")]
+    for m, _ in saved:
+        m.COMPUTE_DTYPE = torch.float32
+    try:
+        yield
+    finally:
+        for m, dt in saved:
+            m.COMPUTE_DTYPE = dt
+
+
+@contextlib.contextmanager
+def zoo_routing(torch):
+    """While open, every MoE dispatch group of the port is recorded on the
+    host, in call order, as (probs, top-k, keep)."""
+    from repro_torch.models import moe
+
+    rec, real = [], moe._moe_chunk
+
+    def chunk(cfg, p, xt):
+        with torch.no_grad():
+            probs, _, tope = moe.route(cfg, p, xt)
+            _, keep = moe.slots(cfg, tope, moe.capacity(cfg, xt.shape[0]))
+        rec.append((probs.cpu().numpy(), tope.cpu().numpy(),
+                    keep.reshape(tope.shape).cpu().numpy()))
+        return real(cfg, p, xt)
+
+    moe._moe_chunk = chunk
+    try:
+        yield rec
+    finally:
+        moe._moe_chunk = real
+
+
+@contextlib.contextmanager
+def zoo_drops(torch, groups: int, dev):
+    """While open, each MoE layer's dropped choices (past an expert's
+    capacity) add up on the device, ``groups`` layers a forward in turn:
+    the count is part of the step, so a CUDA graph replays it too."""
+    from repro_torch.models import moe
+
+    counts = torch.zeros(groups, dtype=torch.int64, device=dev)
+    real, calls = moe.slots, [0]
+
+    def slots(cfg, tope, cap):
+        slot, keep = real(cfg, tope, cap)
+        counts[calls[0] % groups].add_((~keep).sum())
+        calls[0] += 1
+        return slot, keep
+
+    moe.slots = slots
+    try:
+        yield counts
+    finally:
+        moe.slots = real
+
+
+def zoo_group_diff(np, want, got):
+    """One dispatch group, CPU (``want``) against the card (``got``), by
+    the CPU tests' rule (tests/torch_lm_common.py::routing_diff): (tokens
+    whose experts or kept experts differ, flips [(token, gap)], bad)."""
+    probs, wt, wk = want
+    _, gt, gk = got
+    e, k = probs.shape[1], wt.shape[1]
+
+    def experts(tope, keep):
+        rows = np.arange(len(tope))[:, None]
+        out = np.zeros((len(tope), 2 * e), bool)
+        out[rows, tope] = True
+        out[rows, e + tope] = keep
+        return out
+
+    wx, gx = experts(wt, wk), experts(gt, gk)
+    chose = (wx[:, :e] != gx[:, :e]).any(1)
+    kept = (wx[:, e:] != gx[:, e:]).any(1)
+    srt = np.sort(probs, axis=-1)[:, ::-1]
+    gap = srt[:, k - 1] - srt[:, k]
+    flips = [(int(t), float(gap[t])) for t in np.flatnonzero(chose)]
+    bad = [f for f in flips if f[1] >= ZOO_ROUTE_EPS]
+    first = np.flatnonzero(chose)[0] if chose.any() else len(chose)
+    bad += [(int(t), None) for t in np.flatnonzero(kept & ~chose) if t <= first]
+    return chose | kept, flips, bad
+
+
+def zoo_taint(np, want, got, b: int, n: int, decode: bool):
+    """Rows and positions [b, n] whose values may rightly differ after the
+    recorded groups: prefill (each group over b * n tokens; a token and the
+    rest of its row) or decode (n steps, each the same number of groups
+    over b tokens; a row from that step on).  Returns (taint, flips, bad)."""
+    taint = np.zeros((b, n), bool)
+    flips, bad = [], []
+    per = len(want) // n if decode else len(want)
+    for g, (w, c) in enumerate(zip(want, got)):
+        diff, fl, bd = zoo_group_diff(np, w, c)
+        clean = ~(taint[:, g // per] if decode else taint.reshape(-1))
+        flips += [(g, t, gap) for t, gap in fl if clean[t]]
+        bad += [(g, t, gap) for t, gap in bd if clean[t]]
+        if decode:
+            taint[:, g // per:] |= diff[:, None]
+        else:
+            taint = np.maximum.accumulate(taint | diff.reshape(b, n), axis=1)
+    return taint, flips, bad
+
+
+def zoo_parity(torch, np, dev, arch: str) -> dict:
+    """reduced(arch), one set of weights on the CPU and the card: prefill
+    logits, loss and aux, teacher-forced decode and greedy tokens."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.models import encdec, model_zoo
+    from repro_torch.train import serve
+
+    cfg = reduced(get_config(arch))
+    b, s, p, n = (ZOO_PARITY[k] for k in ("batch", "seq", "prompt", "steps"))
+    rng = np.random.default_rng(21)
+    toks = rng.integers(0, cfg.vocab, (b, s + 1))
+    host = {"tokens": toks[:, :s].astype(np.int32),
+            "targets": toks[:, 1:].astype(np.int32),
+            "mask": np.ones((b, s), np.float32)}
+    if cfg.enc_layers:
+        fd = cfg.frontend_dim or cfg.d_model
+        host["frames"] = rng.normal(0, 0.02, (b, s, fd)).astype(np.float32)
+    cpu = model_zoo.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    card = copy.deepcopy(cpu).to(dev)
+    runs = (("cpu", cpu), (dev, card))
+
+    def on(d, arrays):
+        return {k: torch.as_tensor(v, device=d) for k, v in arrays.items()}
+
+    pre, loss, aux, routes = [], [], [], []
+    for d, m in runs:
+        with zoo_routing(torch) as rec, torch.no_grad():
+            pre.append(model_zoo.prefill_fn(cfg, m, on(d, host)).cpu().numpy())
+            lo, met = model_zoo.loss_fn(cfg, m, on(d, host))
+        loss.append(float(lo))
+        aux.append(float(met["aux"]))
+        routes.append(rec[: len(rec) // 2])  # prefill's groups (loss repeats them)
+    taint, flips, bad = zoo_taint(np, *routes, b, s, decode=False)
+
+    # greedy on the CPU, then both devices teacher-forced on its tokens
+    memory = None
+    if cfg.enc_layers:
+        with torch.no_grad():
+            memory = encdec.encode(cfg, cpu, on("cpu", host)["frames"])
+
+    def step_batch(d, col):
+        out = {"tokens": torch.as_tensor(col, device=d)}
+        if memory is not None:
+            out["memory"] = memory.to(d)
+        return out
+
+    def greedy(d, m):
+        if memory is None:
+            return serve.greedy_generate(
+                cfg, m, torch.as_tensor(host["tokens"][:, :p], device=d),
+                steps=n, max_len=p + n).cpu().numpy()
+        st = model_zoo.decode_state_init(cfg, b, p + n, device=d)
+        out, tok = [host["tokens"][:, :1]], None
+        for i in range(p + n - 1):
+            col = host["tokens"][:, i: i + 1] if i < p else tok
+            lo, st = model_zoo.decode_fn(cfg, m, st, step_batch(d, col), i)
+            if i >= p - 1:
+                tok = lo.argmax(-1)[:, None].cpu().numpy().astype(np.int32)
+                out.append(tok)
+        return np.concatenate(out, axis=1)
+
+    want = greedy("cpu", cpu)
+    got = greedy(dev, card)
+    seq = np.concatenate([host["tokens"][:, :p], want[:, 1:]], axis=1)
+    logits, droutes = [], []
+    for d, m in runs:
+        st = model_zoo.decode_state_init(cfg, b, p + n, device=d)
+        steps = []
+        with zoo_routing(torch) as rec:
+            for i in range(p + n - 1):
+                lo, st = model_zoo.decode_fn(cfg, m, st,
+                                             step_batch(d, seq[:, i: i + 1]), i)
+                steps.append(lo.cpu().numpy())
+        logits.append(np.stack(steps[p - 1:], axis=1))  # the n generated steps
+        droutes.append(rec)
+    dtaint, dflips, dbad = zoo_taint(np, *droutes, b, p + n - 1, decode=True)
+    dtaint = dtaint[:, p - 1:]
+    compared = lm_near_tie(np, logits[0], LM_TOL)
+    compared = [min(c, int(np.argmax(t)) if t.any() else n)
+                for c, t in zip(compared, dtaint)]
+    rows = ~taint[:, -1]
+    ok_pre = np.allclose(pre[1][rows], pre[0][rows], rtol=LM_TOL, atol=LM_TOL)
+    clean = ~dtaint
+    ok_dec = np.allclose(logits[1][clean], logits[0][clean], rtol=LM_TOL,
+                         atol=LM_TOL)
+    aux_tol = ZOO_AUX_TOL if not taint.any() else LM_TOL
+    line = dict(arch=cfg.name, fp32_activations=arch in ZOO_FP32, batch=b,
+                seq=s, prompt=p, decode_steps=n,
+                prefill_max_abs_err=float(np.abs(pre[1] - pre[0])[rows].max())
+                if rows.any() else None,
+                loss_cpu=loss[0], loss_card=loss[1], aux_cpu=aux[0],
+                aux_card=aux[1],
+                decode_max_abs_err=float(np.abs(logits[1] - logits[0])[clean].max())
+                if clean.any() else None,
+                routing_flips=flips + dflips, tokens_tainted=int(taint.sum()),
+                decode_steps_tainted=int(dtaint.sum()),
+                greedy_compared_steps=compared,
+                greedy_equal_all_steps=bool((got == want).all()))
+    emit("lm_zoo_parity", **line, tol=LM_TOL, loss_tol=LM_LOSS_TOL,
+         route_eps=ZOO_ROUTE_EPS, card=card_line())
+    check(not bad and not dbad, f"{arch}: a routing flip above {ZOO_ROUTE_EPS}")
+    check(ok_pre, f"{arch}: card prefill logits differ from the CPU's")
+    check(abs(loss[1] - loss[0]) <= LM_LOSS_TOL, f"{arch}: loss differs")
+    check(abs(aux[1] - aux[0]) <= aux_tol * abs(aux[0]), f"{arch}: aux differs")
+    check(ok_dec, f"{arch}: card decode logits differ from the CPU's")
+    check(lm_same_until(got, want, compared),
+          f"{arch}: greedy tokens differ before a near-tie or a flip")
+    return line
+
+
+def zoo_greedy(torch, cfg, model, prompts, steps: int, max_len: int):
+    """serve.greedy_generate written out on its GraphedDecode: (tokens
+    [B, 1 + steps], the prompt's last logits, prompt feed s, generation
+    s)."""
+    from repro_torch.models import model_zoo
+    from repro_torch.train import serve
+
+    dev = prompts.device
+    b, s0 = prompts.shape
+    decode = serve.GraphedDecode(
+        cfg, model, model_zoo.decode_state_init(cfg, b, max_len, device=dev))
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    for i in range(s0 - 1):
+        decode(prompts[:, i: i + 1], i)
+    torch.cuda.synchronize(dev)
+    feed_s = time.perf_counter() - t
+    tok, out = prompts[:, -1:], [prompts[:, :1]]
+    t = time.perf_counter()
+    for j in range(steps):
+        lo = decode(tok, s0 - 1 + j)
+        if j == 0:
+            first = lo.float().cpu().numpy()
+        tok = torch.argmax(lo, dim=-1)[:, None].to(prompts.dtype)
+        out.append(tok)
+    torch.cuda.synchronize(dev)
+    return torch.cat(out, 1), first, feed_s, time.perf_counter() - t
+
+
+def zoo_prefill(torch, model_zoo, cfg, model, batch, dev, runs: int = 2):
+    """``prefill_fn`` ``runs`` times (the first pays the libraries'
+    warm-up): (last-position logits on the host, seconds of each run)."""
+    secs = []
+    for _ in range(runs):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        pre = model_zoo.prefill_fn(cfg, model, batch)
+        torch.cuda.synchronize(dev)
+        secs.append(time.perf_counter() - t)
+    check(pre.shape == (batch["tokens"].shape[0], cfg.padded_vocab)
+          and bool(torch.isfinite(pre).all()),
+          f"{cfg.name}: prefill logits not finite or misshapen")
+    return pre.float().cpu().numpy(), secs
+
+
+def zoo_init(torch, cfg, dev):
+    from repro_torch.models import model_zoo
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    model = model_zoo.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    torch.cuda.synchronize(dev)
+    return model, sum(q.numel() for q in model.parameters()), \
+        time.perf_counter() - t
+
+
+def zoo_tokens(torch, np, cfg, shape, seed, dev):
+    return torch.as_tensor(np.random.default_rng(seed).integers(
+        0, cfg.vocab, shape), dtype=torch.int32, device=dev)
+
+
+def zoo_serve_moe(torch, np, dev, arch: str, spec: dict) -> None:
+    """An MoE LM at full width, ``spec["layers"]`` layers: a prefill, then
+    greedy tokens after a prompt, twice; the choices dropped per layer."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo, moe
+    from repro_torch.train import serve
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=spec["layers"])
+    b, k = spec["batch"], cfg.moe.top_k
+    groups = cfg.n_blocks * len(cfg.moe_slots)
+    model, n_params, init_s = zoo_init(torch, cfg, dev)
+    with zoo_drops(torch, groups, dev) as drops:
+        pre, prefill_s = zoo_prefill(
+            torch, model_zoo, cfg, model,
+            {"tokens": zoo_tokens(torch, np, cfg, (b, spec["prefill"]), 31, dev)},
+            dev)
+        prefill_drops = (drops // len(prefill_s)).tolist()
+        drops.zero_()
+        prompts = zoo_tokens(torch, np, cfg, (b, spec["prompt"]), 32, dev)
+        max_len = spec["prompt"] + spec["steps"]
+        tokens, _, feed_s, gen_s = zoo_greedy(torch, cfg, model, prompts,
+                                              spec["steps"], max_len)
+        decode_steps = max_len - 1
+        decode_drops = drops.tolist()
+    again = serve.greedy_generate(cfg, model, prompts, steps=spec["steps"],
+                                  max_len=max_len)
+    torch.cuda.synchronize(dev)
+    emit("lm_zoo_serve", arch=arch, layers=f"{cfg.n_layers} of {full.n_layers}",
+         reduced={"n_layers": [full.n_layers, cfg.n_layers]}, params=n_params,
+         init_s=init_s, batch=b, prefill=spec["prefill"], prefill_s=prefill_s,
+         prefill_tokens_per_s=b * spec["prefill"] / prefill_s[-1],
+         capacity_prefill=moe.capacity(cfg, b * spec["prefill"]),
+         capacity_decode=moe.capacity(cfg, b),
+         prefill_dropped_per_layer=prefill_drops,
+         prefill_choices_per_layer=b * spec["prefill"] * k,
+         prompt=spec["prompt"], steps=spec["steps"],
+         decode_dropped_per_layer=decode_drops,
+         decode_choices_per_layer=decode_steps * b * k,
+         prompt_feed_ms_per_token=1e3 * feed_s / (spec["prompt"] - 1),
+         decode_ms_per_token=1e3 * gen_s / spec["steps"],
+         decode_tokens_per_s=b * spec["steps"] / gen_s,
+         runs_identical=bool(torch.equal(tokens, again)),
+         prefill_logits_max_abs=float(np.abs(pre).max()),
+         max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+         card=card_line())
+    check(torch.equal(tokens, again), f"{arch}: two greedy runs differ")
+    check(bool(np.isfinite(pre).all()), f"{arch}: prefill not finite")
+
+
+def zoo_train_in_process(torch, np, dev, arch: str, spec: dict,
+                         moe_leaf: str | None = None) -> None:
+    """``train/loop.py`` at full width, ``spec["train_layers"]`` layers:
+    ``train_steps`` AdamW steps on B x S random tokens; loss, aux and grad
+    norm finite, and with ``moe_leaf`` the router's first moment non-zero
+    after the first step (its gradient was) and the aux loss positive."""
+    import dataclasses
+    import math
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo
+    from repro_torch.train import loop as train_loop
+    from repro_torch.train.optimizer import AdamWConfig
+
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=spec["train_layers"])
+    b, s, n = spec["train_batch"], spec["train_seq"], spec["train_steps"]
+    tcfg = train_loop.TrainConfig(
+        adamw=AdamWConfig(lr=3e-4, warmup_steps=20, total_steps=n))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params, opt = train_loop.init_state(
+        cfg, tcfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    n_params = sum(q.numel() for q in params.parameters())
+    step_fn = train_loop.build_train_step(cfg, tcfg)
+    rng = np.random.default_rng(33)
+    out, step_s, router_moment = [], [], None
+    for i in range(n):
+        toks = rng.integers(0, cfg.vocab, (b, s))
+        batch = {"tokens": torch.as_tensor(toks, dtype=torch.int32, device=dev),
+                 "targets": torch.as_tensor(np.roll(toks, -1, 1),
+                                            dtype=torch.int32, device=dev),
+                 "mask": torch.ones((b, s), dtype=torch.float32, device=dev)}
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        params, opt, met = step_fn(params, opt, batch)
+        torch.cuda.synchronize(dev)
+        step_s.append(time.perf_counter() - t)
+        out.append(dict(step=i, loss=float(met["loss"]),
+                        grad_norm=float(met["grad_norm"])))
+        if i == 0 and moe_leaf:
+            router_moment = float(opt["m"][moe_leaf].float().abs().max())
+    with torch.no_grad():
+        _, met = model_zoo.loss_fn(cfg, params, batch)
+    aux = float(met["aux"])
+    emit("lm_zoo_train", arch=arch, layers=f"{cfg.n_layers} of {full.n_layers}",
+         reduced={"n_layers": [full.n_layers, cfg.n_layers]}, params=n_params,
+         batch=b, seq=s, steps=out, step_s=step_s,
+         step_s_median=statistics.median(step_s),
+         tokens_per_s=b * s / statistics.median(step_s), aux_after=aux,
+         router_first_moment_max=router_moment,
+         max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+         card=card_line())
+    check(all(math.isfinite(v) for r in out for v in (r["loss"], r["grad_norm"]))
+          and math.isfinite(aux), f"{arch} train: a loss or grad norm not finite")
+    if moe_leaf:
+        check(aux > 0, f"{arch} train: aux loss not positive")
+        check(router_moment and router_moment > 0,
+              f"{arch} train: the router got no gradient")
+    del params, opt
+    torch.cuda.empty_cache()
+
+
+def zoo_rwkv(torch, np, dev) -> None:
+    """rwkv6-7b at full size: a prefill, then greedy tokens after the same
+    prompt, twice (the first run's decode logits of the prompt's last
+    token beside the prefill's), all in bf16; then the prefill held
+    against step-by-step decode of the same tokens with fp32 activations,
+    as the CPU tests hold RWKV-6 (in bf16 its 32 layers amplify the two
+    paths' rounding: the bf16 difference is reported beside it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo
+    from repro_torch.train import serve
+
+    cfg = get_config("rwkv6-7b")
+    b, s0, n = RWKV["batch"], RWKV["prompt"], RWKV["steps"]
+    model, n_params, init_s = zoo_init(torch, cfg, dev)
+    prompts = zoo_tokens(torch, np, cfg, (b, s0), 34, dev)
+    pre, prefill_s = zoo_prefill(torch, model_zoo, cfg, model,
+                                 {"tokens": prompts}, dev)
+    tokens, last, feed_s, gen_s = zoo_greedy(torch, cfg, model, prompts, n,
+                                             s0 + n)
+    again = serve.greedy_generate(cfg, model, prompts, steps=n, max_len=s0 + n)
+    torch.cuda.synchronize(dev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    with zoo_fp32(torch):
+        pre32, prefill32_s = zoo_prefill(torch, model_zoo, cfg, model,
+                                         {"tokens": prompts}, dev, runs=1)
+        _, last32, _, _ = zoo_greedy(torch, cfg, model, prompts, 1, s0 + 1)
+    err, err32 = float(np.abs(last - pre).max()), float(np.abs(last32 - pre32).max())
+    emit("lm_zoo_serve", arch=cfg.name, layers=f"{cfg.n_layers} of {cfg.n_layers}",
+         reduced={}, params=n_params, init_s=init_s, batch=b, prefill=s0,
+         prefill_s=prefill_s, prefill_tokens_per_s=b * s0 / prefill_s[-1],
+         prefill_wkv_steps=s0 * cfg.n_layers,
+         prefill_vs_decode_max_abs_err_bf16=err,
+         prefill_logits_max_abs_bf16=float(np.abs(pre).max()),
+         prefill_vs_decode_argmax_equal_bf16=bool(
+             (last.argmax(-1) == pre.argmax(-1)).all()),
+         prefill_vs_decode_max_abs_err_fp32=err32,
+         prefill_logits_max_abs_fp32=float(np.abs(pre32).max()),
+         prefill_s_fp32=prefill32_s,
+         prompt=s0, steps=n,
+         prompt_feed_ms_per_token=1e3 * feed_s / (s0 - 1),
+         decode_ms_per_token=1e3 * gen_s / n,
+         decode_tokens_per_s=b * n / gen_s,
+         runs_identical=bool(torch.equal(tokens, again)),
+         max_memory_allocated=peak, card=card_line())
+    check(err32 <= LM_TOL * np.abs(pre32).max(),
+          "rwkv6-7b: prefill's last logits differ from step-by-step decode")
+    check(torch.equal(tokens, again), "rwkv6-7b: two greedy runs differ")
+    del model
+    torch.cuda.empty_cache()
+
+
+def zoo_jamba_mamba(torch, np, dev) -> None:
+    """jamba-1.5-large-398b's Mamba layer alone at full width (no depth of
+    the model fits one card): ``mamba_apply`` on [2, 1,024] against 1,024
+    ``mamba_decode`` steps from zero states, and timed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba
+
+    cfg = get_config("jamba-1.5-large-398b")
+    mc = cfg.mamba
+    b, L = JAMBA_MAMBA["batch"], JAMBA_MAMBA["seq"]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p = mamba.mamba_init(cfg, generator=gen, device=dev)
+    n_params = sum(q.numel() for q in p.parameters())
+    x = torch.randn((b, L, cfg.d_model), generator=gen, device=dev).bfloat16()
+    apply_s = []
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize(dev)
+            t = time.perf_counter()
+            y = mamba.mamba_apply(cfg, p, x)
+            torch.cuda.synchronize(dev)
+            apply_s.append(time.perf_counter() - t)
+        st = mamba.mamba_decode_init(cfg, b, 1, device=dev)
+        outs = []
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        for i in range(L):
+            outs.append(mamba.mamba_decode(cfg, p, x[:, i: i + 1],
+                                           st["conv"][0], st["h"][0]))
+        torch.cuda.synchronize(dev)
+        decode_s = time.perf_counter() - t
+        dec = torch.cat(outs, 1).float()
+        y = y.float()
+        # the same layer with fp32 activations (the scan inputs stay bf16)
+        y32 = mamba.mamba_apply(cfg, p, x.float())
+        st = mamba.mamba_decode_init(cfg, b, 1, device=dev)
+        st = {k: v.float() for k, v in st.items()}
+        dec32 = torch.cat([mamba.mamba_decode(cfg, p, x[:, i: i + 1].float(),
+                                              st["conv"][0], st["h"][0])
+                           for i in range(L)], 1)
+    err, top = float((dec - y).abs().max()), float(y.abs().max())
+    err32 = float((dec32 - y32).abs().max())
+    emit("lm_zoo_mamba", arch=cfg.name, d_model=cfg.d_model,
+         d_inner=mc.expand * cfg.d_model, d_state=mc.d_state, chunk=mc.chunk,
+         batch=b, seq=L, params=n_params,
+         reduced={"layers": "one Mamba layer alone; one 8-layer block is "
+                            "45.238 B parameters"},
+         apply_s=apply_s, decode_ms_per_step=1e3 * decode_s / L,
+         apply_vs_decode_max_abs_err=err, apply_max_abs=top,
+         apply_vs_decode_max_abs_err_fp32=err32,
+         apply_max_abs_fp32=float(y32.abs().max()),
+         finite=bool(torch.isfinite(y).all()),
+         max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+         card=card_line())
+    check(bool(torch.isfinite(y).all()), "jamba Mamba: output not finite")
+    check(err <= LM_TOL * top, "jamba Mamba: apply differs from decode")
+    del p, x, y, dec, outs, y32, dec32
+    torch.cuda.empty_cache()
+
+
+def zoo_seamless(torch, np, dev) -> int:
+    """seamless-m4t-medium at full size: ``prefill_fn`` with frames, then
+    ``decode_fn`` steps against its encoder memory, held against a prefill
+    of the same tokens.  Returns the parameter count."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import encdec, model_zoo
+
+    cfg = get_config("seamless-m4t-medium")
+    b, s, k = S2S["batch"], S2S["seq"], S2S["prefix"]
+    model, n_params, init_s = zoo_init(torch, cfg, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    fd = cfg.frontend_dim or cfg.d_model
+    frames = torch.randn((b, s, fd), generator=gen, device=dev) * 0.02
+    toks = zoo_tokens(torch, np, cfg, (b, s), 35, dev)
+    pre, prefill_s = zoo_prefill(torch, model_zoo, cfg, model,
+                                 {"tokens": toks, "frames": frames}, dev)
+    short, _ = zoo_prefill(torch, model_zoo, cfg, model,
+                           {"tokens": toks[:, :k], "frames": frames}, dev, runs=1)
+    with torch.no_grad():
+        memory = encdec.encode(cfg, model, frames)
+    st = model_zoo.decode_state_init(cfg, b, k, device=dev)
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    for i in range(k):
+        lo, st = model_zoo.decode_fn(cfg, model, st, {
+            "tokens": toks[:, i: i + 1], "memory": memory}, i)
+    torch.cuda.synchronize(dev)
+    decode_s = time.perf_counter() - t
+    lo = lo.float().cpu().numpy()
+    err = float(np.abs(lo - short).max())
+    emit("lm_zoo_serve", arch=cfg.name, layers=f"{cfg.enc_layers} + {cfg.n_layers}",
+         reduced={}, params=n_params, init_s=init_s, batch=b, prefill=s,
+         frames=list(frames.shape), prefill_s=prefill_s,
+         prefill_tokens_per_s=b * s / prefill_s[-1], memory_rows=s,
+         decode_steps=k, decode_ms_per_token=1e3 * decode_s / k,
+         decode_vs_prefill_max_abs_err=err,
+         prefill_logits_max_abs=float(np.abs(short).max()),
+         max_memory_allocated=torch.cuda.max_memory_allocated(dev),
+         card=card_line())
+    check(bool(np.isfinite(lo).all()), "seamless: decode logits not finite")
+    check(err <= LM_TOL * np.abs(short).max(),
+          "seamless: decode against the memory differs from prefill")
+    del model, memory, st
+    torch.cuda.empty_cache()
+    return n_params
+
+
+def lm_zoo_phase(torch, np, dev) -> None:
+    """The rest of the model zoo (`repro_torch.models.{moe,mamba,rwkv6,
+    encdec}`): parity of the five reduced configs between the card and the
+    CPU, then each at its published width.  Plain PyTorch, as the
+    reference's plain jnp: no kernel of the port on this path."""
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    for arch in ZOO_ARCHS:
+        ctx = zoo_fp32(torch) if arch in ZOO_FP32 else contextlib.nullcontext()
+        with ctx:
+            timed(f"parity_{arch}", zoo_parity, torch, np, dev, arch)
+    timed("mixtral_serve", zoo_serve_moe, torch, np, dev, "mixtral-8x7b", MIXTRAL)
+    timed("mixtral_train", zoo_train_in_process, torch, np, dev,
+          "mixtral-8x7b", MIXTRAL, "blocks.0.slot0.moe.router")
+    timed("qwen3_serve", zoo_serve_moe, torch, np, dev,
+          "qwen3-moe-235b-a22b", QWEN)
+    timed("rwkv_serve", zoo_rwkv, torch, np, dev)
+    timed("rwkv_train", zoo_train_in_process, torch, np, dev, "rwkv6-7b", RWKV)
+    timed("jamba_mamba", zoo_jamba_mamba, torch, np, dev)
+    n_params = timed("seamless_serve", zoo_seamless, torch, np, dev)
+    timed("seamless_train", lm_train_phase, torch, n_params, S2S_TRAIN_ARGS,
+          (2, 4), "lm_zoo_train_s2s")
+    emit("lm_zoo_done", seconds=time.perf_counter() - t_phase,
+         seconds_by_run=seconds, card=card_line())
 
 
 def main() -> int:
@@ -1872,6 +2522,7 @@ def main() -> int:
     prealign_filter_phase(torch, np, dev)
     segram_phase(torch, np, dev)
     lm_phase(torch, np, dev)
+    lm_zoo_phase(torch, np, dev)
     for name, n in launches.items():
         rows[name]["launches"] = n
     emit("done", seconds=time.perf_counter() - t_start)

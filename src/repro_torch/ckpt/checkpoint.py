@@ -4,8 +4,9 @@ Port of `repro.ckpt.checkpoint`.  Layout:  <dir>/step_<N>/
   manifest.json      — step, flat key list, extra, device count
   arrays.npz         — one entry per flattened leaf (host copies)
 
-Keys are the reference's flat ``"::"`` keys: a `DecoderLM` is saved
-through `models.convert.params_to_jax_tree` (blocks stacked), so a
+Keys are the reference's flat ``"::"`` keys: a model (`DecoderLM` or
+`EncDecLM`) is saved through `models.convert.params_to_jax_tree`
+(blocks stacked), so a
 checkpoint written by either package restores in the other.  A dict of
 tensors (nested or flat) is flattened the same way.  bf16/fp16 leaves are saved
 as fp32 and recast on restore.  Saving snapshots to the host, then
@@ -135,8 +136,8 @@ class CheckpointManager:
         return s[-1] if s else None
 
     def restore(self, step: int, template):
-        """Load into the template's structure: a `DecoderLM` is filled in
-        place and returned; a dict gives a new dict like it."""
+        """Load into the template's structure: a model is filled in place
+        and returned; a dict gives a new dict like it."""
         d = self.dir / f"step_{step}"
         with np.load(d / "arrays.npz") as z:
             arrays = {k: z[k] for k in z.files}

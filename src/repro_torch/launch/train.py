@@ -1,9 +1,11 @@
-"""End-to-end training driver: ``--arch <id>`` of the dense LM family.
+"""End-to-end training driver: ``--arch <id>`` of any LM of the model zoo.
 
 Port of `repro.launch.train`, with the same flags and output lines.
 ``--smoke`` trains the reduced config of the family; without it the full
-config runs (internlm2-1.8b fits one 80 GB card at full width and
-depth).  Fault tolerance: periodic async checkpoints + resume-from-latest
+config runs (internlm2-1.8b and seamless-m4t-medium fit one 80 GB card
+at full width and depth).  The encoder-decoder is fed random frame
+embeddings beside its tokens, drawn from the same stream as the
+reference's.  Fault tolerance: periodic async checkpoints + resume-from-latest
 (`repro_torch.ckpt`, `repro_torch.dist.fault.Heartbeat`).
 
 ``--device`` (default ``cuda``) picks where the model trains.  With
@@ -105,7 +107,12 @@ def main(argv=None):
             "mask": torch.ones((args.batch, args.seq), dtype=torch.float32,
                                device=device),
         }
-        if cfg.frontend == "vision_stub":
+        if model_zoo.is_encdec(cfg):
+            fd = cfg.frontend_dim or cfg.d_model
+            batch["frames"] = torch.as_tensor(
+                rng.normal(0, 0.02, (args.batch, args.seq, fd)),
+                dtype=torch.float32, device=device)
+        elif cfg.frontend == "vision_stub":
             fd = cfg.frontend_dim or cfg.d_model
             batch["prefix_embeds"] = torch.as_tensor(
                 rng.normal(0, 0.02, (args.batch, cfg.frontend_len or 16, fd)),

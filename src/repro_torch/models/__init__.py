@@ -1,1 +1,1 @@
-"""The model zoo's dense decoder-only family (port of `repro.models`)."""
+"""The model zoo: decoder-only and encoder-decoder LMs (port of `repro.models`)."""

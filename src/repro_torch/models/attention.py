@@ -6,7 +6,8 @@ each block in the backward (``torch.utils.checkpoint`` in place of
 ``jax.checkpoint``), so the [Sq, Sk] scores of only one block exist at
 a time.  Scores are taken in bf16, softmaxed in fp32 and cast back to
 the value dtype before the PV product, as in the reference.  Supports
-causal masking, sliding windows, logit softcap and non-causal mode.
+causal masking, sliding windows, logit softcap, non-causal mode and the
+encoder-decoder's cross attention.
 """
 from __future__ import annotations
 
@@ -124,6 +125,14 @@ def attention(cfg, p, x, positions, *, causal=True):
         softcap=cfg.attn_logit_softcap,
     )
     return _out(out, p.wo)
+
+
+def cross_attention(cfg, p, x, memory):
+    """Encoder-decoder cross attention: queries from ``x`` [B, S, D], keys
+    and values from the encoder ``memory`` [B, S_enc, D]; no RoPE and no
+    bias, as in the reference."""
+    q, k, v = _proj(x, p.wq), _proj(memory, p.wk), _proj(memory, p.wv)
+    return _out(blockwise_attention(q, k, v, causal=False), p.wo)
 
 
 def decode_attention(cfg, p, x, cache_k, cache_v, cache_pos, cache_len):

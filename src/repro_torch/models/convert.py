@@ -1,10 +1,12 @@
-"""The weight carrier between the reference's parameter tree and a DecoderLM.
+"""The weight carrier between the reference's parameter tree and a model.
 
 The reference keeps parameters as a nested dict, with every block's
-leaves stacked over a leading ``n_blocks`` axis (``init_params`` vmaps
-the block init).  Its checkpoints flatten that tree to ``"::"``-joined
-keys (``blocks::slot0::attn::wq``).  Here a block is a module of its
-own: ``blocks.{b}.slot0.attn.wq`` is row ``b`` of that stacked leaf.
+leaves stacked over a leading axis (``init_params`` vmaps the block
+init: ``blocks`` over ``n_blocks``; the encoder-decoder's
+``enc_blocks`` and ``dec_blocks`` over their layers).  Its checkpoints
+flatten that tree to ``"::"``-joined keys (``blocks::slot0::attn::wq``).
+Here a block is a module of its own: ``blocks.{b}.slot0.attn.wq`` is
+row ``b`` of that stacked leaf, ``dec_blocks.{i}.xattn.wq`` row ``i``.
 ``params_to_jax_tree`` and ``load_jax_tree`` map between the two, so a
 checkpoint written by either package restores in the other.
 """
@@ -14,11 +16,12 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
-from .model_zoo import resolve_device
-from .transformer import DecoderLM
+from .model_zoo import model_class, resolve_device
 
 SEP = "::"
+STACKED = ("blocks", "enc_blocks", "dec_blocks")
 
 
 def flatten(tree: Mapping, prefix: str = "") -> dict:
@@ -36,12 +39,12 @@ def flatten(tree: Mapping, prefix: str = "") -> dict:
 def jax_key(name: str) -> tuple[str, int | None]:
     """Module parameter name -> (flat reference key, block row or None)."""
     parts = name.split(".")
-    if parts[0] == "blocks":
-        return SEP.join(["blocks", *parts[2:]]), int(parts[1])
+    if parts[0] in STACKED:
+        return SEP.join([parts[0], *parts[2:]]), int(parts[1])
     return SEP.join(parts), None
 
 
-def params_to_jax_tree(model: DecoderLM) -> dict[str, np.ndarray]:
+def params_to_jax_tree(model: nn.Module) -> dict[str, np.ndarray]:
     """The reference's flat keys and shapes (blocks stacked), as fp32 numpy."""
     out: dict[str, np.ndarray] = {}
     rows: dict[str, dict[int, np.ndarray]] = {}
@@ -57,7 +60,7 @@ def params_to_jax_tree(model: DecoderLM) -> dict[str, np.ndarray]:
     return out
 
 
-def load_jax_tree(model: DecoderLM, tree: Mapping) -> DecoderLM:
+def load_jax_tree(model: nn.Module, tree: Mapping) -> nn.Module:
     """Copy a reference tree (nested or flat ``"::"`` keys) into ``model``
     in place; every key must match a parameter, shape for shape."""
     flat = flatten(tree)
@@ -82,7 +85,9 @@ def load_jax_tree(model: DecoderLM, tree: Mapping) -> DecoderLM:
     return model
 
 
-def params_from_jax(cfg, tree: Mapping, *, device="cuda") -> DecoderLM:
-    """A DecoderLM on ``device`` holding the reference tree's weights."""
-    model = DecoderLM(cfg, device="meta").to_empty(device=resolve_device(device))
+def params_from_jax(cfg, tree: Mapping, *, device="cuda") -> nn.Module:
+    """The config's model (a DecoderLM or an EncDecLM) on ``device``,
+    holding the reference tree's weights."""
+    model = model_class(cfg)(cfg, device="meta").to_empty(
+        device=resolve_device(device))
     return load_jax_tree(model, tree)

@@ -1,11 +1,12 @@
-"""Config → model builder: init, loss, prefill, decode (the dense family).
+"""Config → model builder: init, loss, prefill, decode for every family.
 
-Port of `repro.models.model_zoo` for the decoder-only dense
-configurations (``models/transformer.py``); the encoder-decoder family
-waits for ``models/encdec.py`` (ROADMAP Queue 1).  ``params`` is a
-`transformer.DecoderLM`.  Everything that allocates runs on ``cuda``
-unless the caller passes ``device="cpu"``; without a card ``cuda``
-raises rather than falling back to the CPU.
+Port of `repro.models.model_zoo`.  Families: decoder-only (dense, MoE,
+hybrid, SSM; ``params`` is a `transformer.DecoderLM`), encoder-decoder
+(seamless; an `encdec.EncDecLM` fed ``frames`` to train and prefill and
+the encoder ``memory`` to decode), VLM (prefix embeddings).  Everything
+that allocates runs on ``cuda`` unless the caller passes
+``device="cpu"``; without a card ``cuda`` raises rather than falling
+back to the CPU.
 """
 from __future__ import annotations
 
@@ -15,19 +16,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from . import transformer
-from .layers import chunked_logits_xent
+from . import encdec, transformer
+from .layers import COMPUTE_DTYPE, chunked_logits_xent
 
 
 def is_encdec(cfg: ModelConfig) -> bool:
     return cfg.enc_layers > 0
-
-
-def _dense_only(cfg: ModelConfig) -> None:
-    if is_encdec(cfg):
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family waits for "
-            "models/encdec.py and cross_attention (ROADMAP Queue 1)")
 
 
 def resolve_device(device) -> torch.device:
@@ -40,21 +34,26 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+def model_class(cfg: ModelConfig) -> type:
+    return encdec.EncDecLM if is_encdec(cfg) else transformer.DecoderLM
+
+
 def init(cfg: ModelConfig, generator: torch.Generator | None = None, *,
-         device="cuda") -> transformer.DecoderLM:
+         device="cuda"):
     """Random weights from ``generator`` (default: seed 0 on ``device``)."""
-    _dense_only(cfg)
     dev = resolve_device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev).manual_seed(0)
-    return transformer.DecoderLM(cfg, generator=generator, device=dev)
+    return model_class(cfg)(cfg, generator=generator, device=dev)
 
 
 def loss_fn(cfg: ModelConfig, params, batch, *, remat: bool = True, mesh=None,
             sp: bool = False):
-    """batch: dict(tokens, targets, mask [, prefix_embeds])."""
-    _dense_only(cfg)
-    if cfg.frontend == "vision_stub":
+    """batch: dict(tokens, targets, mask [, frames | prefix_embeds])."""
+    if is_encdec(cfg):
+        hidden, aux = encdec.forward(cfg, params, batch["tokens"],
+                                     batch["frames"], remat=remat)
+    elif cfg.frontend == "vision_stub":
         hidden, aux = transformer.forward(
             cfg, params, batch["tokens"], prefix_embeds=batch["prefix_embeds"],
             remat=remat, mesh=mesh, sp=sp)
@@ -70,25 +69,31 @@ def loss_fn(cfg: ModelConfig, params, batch, *, remat: bool = True, mesh=None,
 @torch.no_grad()
 def prefill_fn(cfg: ModelConfig, params, batch):
     """Prefill: hidden-states forward; returns last-position logits."""
-    _dense_only(cfg)
-    prefix = batch["prefix_embeds"] if cfg.frontend == "vision_stub" else None
-    hidden, _ = transformer.forward(cfg, params, batch["tokens"],
-                                    prefix_embeds=prefix)
+    if is_encdec(cfg):
+        memory = encdec.encode(cfg, params, batch["frames"])
+        hidden = encdec.decode(cfg, params, batch["tokens"], memory)
+    else:
+        prefix = (batch["prefix_embeds"] if cfg.frontend == "vision_stub"
+                  else None)
+        hidden, _ = transformer.forward(cfg, params, batch["tokens"],
+                                        prefix_embeds=prefix)
     return transformer.logits_head(cfg, params, hidden[:, -1:])[:, -1]
 
 
 def decode_state_init(cfg: ModelConfig, batch: int, max_len: int, *,
                       device="cuda"):
-    _dense_only(cfg)
-    return transformer.decode_state_init(cfg, batch, max_len,
-                                         device=resolve_device(device))
+    mod = encdec if is_encdec(cfg) else transformer
+    return mod.decode_state_init(cfg, batch, max_len,
+                                 device=resolve_device(device))
 
 
 @torch.no_grad()
 def decode_fn(cfg: ModelConfig, params, state, batch, pos):
     """One token for the whole batch against the decode state (updated in
-    place and returned)."""
-    _dense_only(cfg)
+    place and returned); the encoder-decoder reads ``batch["memory"]``."""
+    if is_encdec(cfg):
+        return encdec.decode_step(cfg, params, state, batch["tokens"], pos,
+                                  batch["memory"])
     return transformer.decode_step(cfg, params, state, batch["tokens"], pos)
 
 
@@ -101,10 +106,11 @@ def _spec(shape, dtype) -> torch.Tensor:
 def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
     """``meta`` tensors standing in for every model input of a shape.
 
-    For ``decode`` shapes the KV state is part of the inputs (the serve
-    step's signature): one new token against a ``seq_len`` cache.
+    For ``decode`` shapes the decode state is part of the inputs (the
+    serve step's signature): one new token against a ``seq_len`` cache,
+    and for the encoder-decoder the encoder memory of ``frontend_len``
+    rows.
     """
-    _dense_only(cfg)
     B, S = shape.global_batch, shape.seq_len
     fd = cfg.frontend_dim or cfg.d_model
     if shape.kind in ("train", "prefill"):
@@ -112,12 +118,18 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict[str, Any]:
         if shape.kind == "train":
             specs["targets"] = _spec((B, S), torch.int32)
             specs["mask"] = _spec((B, S), torch.float32)
-        if cfg.frontend == "vision_stub":
+        if is_encdec(cfg):
+            specs["frames"] = _spec((B, S, fd), torch.float32)
+        elif cfg.frontend == "vision_stub":
             specs["prefix_embeds"] = _spec((B, cfg.frontend_len or 256, fd),
                                            torch.float32)
         return {"batch": specs}
-    state = transformer.decode_state_init(cfg, B, S, device="meta")
-    return {"state": state, "batch": {"tokens": _spec((B, 1), torch.int32)}}
+    state = decode_state_init(cfg, B, S, device="meta")
+    specs = {"tokens": _spec((B, 1), torch.int32)}
+    if is_encdec(cfg):
+        specs["memory"] = _spec((B, cfg.frontend_len or 4096, cfg.d_model),
+                                COMPUTE_DTYPE)
+    return {"state": state, "batch": specs}
 
 
 def _sorted_leaves(tree, path=()):

@@ -1,9 +1,9 @@
-"""Decoder-only LM assembled from a ModelConfig: the dense family.
+"""Decoder-only LM assembled from a ModelConfig.
 
-Port of `repro.models.transformer` for the configurations whose pattern
-is attention only, with dense MLPs: yi-6b, internlm2-1.8b, command-r-35b
-(parallel block), nemotron-4-340b (squared ReLU) and internvl2-1b (qkv
-bias, prefix embeddings).  Layers are grouped into the config's pattern;
+Port of `repro.models.transformer`.  Layers are grouped into the
+config's repeating pattern (Jamba's [mamba x4, attn, mamba x3]); each
+slot is an ``attn``, ``mamba`` or ``rwkv`` mixer followed by the RWKV
+channel mix, an MoE MLP (the config's ``moe_slots``) or a dense MLP.
 ``DecoderLM.blocks[b].slot{i}`` holds the parameters that the reference
 stacks over pattern groups, under the same leaf names:
 JAX ``blocks::slot0::attn::wq`` [n_blocks, d, H, hd] is
@@ -11,8 +11,9 @@ JAX ``blocks::slot0::attn::wq`` [n_blocks, d, H, hd] is
 The reference's ``lax.scan`` over blocks is a loop; its per-block remat
 is ``torch.utils.checkpoint``.
 
-Entry points: ``forward`` (train/prefill hidden states), ``logits_head``,
-``decode_state_init`` and ``decode_step`` (one token against the cache).
+Entry points: ``forward`` (train/prefill hidden states and the MoE aux
+loss), ``logits_head``, ``decode_state_init`` and ``decode_step`` (one
+token against the per-slot decode state, updated in place).
 """
 from __future__ import annotations
 
@@ -21,30 +22,15 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from . import attention as attn
+from . import mamba as mb
+from . import moe as moe_mod
+from . import rwkv6 as rk
 from .layers import (COMPUTE_DTYPE, apply_norm, dense_init, embed_init,
                      holder, make_norm, mlp_apply, mlp_init)
 
 # int8 KV cache (per-position, per-head symmetric scales), the reference's
 # module flag of the same name: read by ``decode_state_init``
 KV_INT8 = False
-
-# The model-zoo modules still to port, by slot kind (ROADMAP Queue 1).
-_NEXT = {"moe": "models/moe.py (mixtral, qwen3-moe)",
-         "mamba": "models/mamba.py (jamba)",
-         "rwkv": "models/rwkv6.py"}
-
-
-def check_supported(cfg) -> None:
-    """Raise for what the dense slice does not carry."""
-    for kind in cfg.pattern:
-        if kind != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: {kind!r} layers wait for {_NEXT[kind]}, the "
-                "next model-zoo module in ROADMAP Queue 1")
-    if cfg.moe_slots:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE slots wait for {_NEXT['moe']}, the next "
-            "model-zoo module in ROADMAP Queue 1")
 
 
 def _no_mesh(mesh, sp) -> None:
@@ -53,31 +39,62 @@ def _no_mesh(mesh, sp) -> None:
             "mesh/sp need dist/sharding.py, not yet ported (ROADMAP Queue 1)")
 
 
-def _slot(cfg, *, generator, device) -> nn.Module:
+def _slot(cfg, slot: int, kind: str, *, generator, device) -> nn.Module:
+    """One slot's parameters, drawn in the reference's order: norm1, the
+    mixer, norm2, then the channel mix, MoE or MLP."""
     kw = dict(generator=generator, device=device)
     m = nn.Module()
     m.norm1 = make_norm(cfg, cfg.d_model, device=device)
-    m.attn = attn.attn_init(cfg, **kw)
+    if kind == "attn":
+        m.attn = attn.attn_init(cfg, **kw)
+    elif kind == "mamba":
+        m.mamba = mb.mamba_init(cfg, **kw)
+    else:
+        m.rwkv = rk.rwkv_init(cfg, **kw)
     m.norm2 = make_norm(cfg, cfg.d_model, device=device)
-    m.mlp = mlp_init(cfg, **kw)
+    if kind == "rwkv":
+        m.cmix = rk.rwkv_channel_mix_init(cfg, **kw)
+    elif slot in cfg.moe_slots:
+        m.moe = moe_mod.moe_init(cfg, **kw)
+    else:
+        m.mlp = mlp_init(cfg, **kw)
     return m
 
 
-def _slot_apply(cfg, p, x, positions):
+def _mlp_part(cfg, p, kind, h, aux):
+    """The slot's second half on normed ``h``: (out, aux + its MoE aux)."""
+    if kind == "rwkv":
+        return rk.rwkv_channel_mix(cfg, p.cmix, h), aux
+    if hasattr(p, "moe"):
+        m, a = moe_mod.moe_apply(cfg, p.moe, h)
+        return m, aux + a
+    return mlp_apply(cfg, p.mlp, h), aux
+
+
+def _slot_apply(cfg, p, x, positions, kind, aux):
     h = apply_norm(cfg, p.norm1, x)
-    a = attn.attention(cfg, p.attn, h, positions)
+    if kind == "attn":
+        a = attn.attention(cfg, p.attn, h, positions)
+    elif kind == "mamba":
+        a = mb.mamba_apply(cfg, p.mamba, h)
+    else:
+        a = rk.rwkv_apply(cfg, p.rwkv, h)
     if cfg.parallel_block:
         # command-r style: MLP on the same normed input, single residual add
-        return x + a + mlp_apply(cfg, p.mlp, h)
+        m, aux = _mlp_part(cfg, p, kind, h, aux)
+        return x + a + m, aux
     x = x + a
-    h2 = apply_norm(cfg, p.norm2, x)
-    return x + mlp_apply(cfg, p.mlp, h2)
+    m, aux = _mlp_part(cfg, p, kind, apply_norm(cfg, p.norm2, x), aux)
+    return x + m, aux
 
 
 def block_apply(cfg, bp, x, positions):
-    for i in range(len(cfg.pattern)):
-        x = _slot_apply(cfg, getattr(bp, f"slot{i}"), x, positions)
-    return x
+    """One block: (x, the block's aux loss fp32)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, kind in enumerate(cfg.pattern):
+        x, aux = _slot_apply(cfg, getattr(bp, f"slot{i}"), x, positions,
+                             kind, aux)
+    return x, aux
 
 
 def constrain_activations(x, mesh=None, seq_axis=False):
@@ -87,7 +104,7 @@ def constrain_activations(x, mesh=None, seq_axis=False):
 
 
 class DecoderLM(nn.Module):
-    """Parameters of a dense decoder-only LM; the functions below apply it.
+    """Parameters of a decoder-only LM; the functions below apply it.
 
     Built on ``device``; ``device="meta"`` allocates nothing (shapes only,
     `models/convert.py` fills such a model).  Weights are drawn from
@@ -96,14 +113,13 @@ class DecoderLM(nn.Module):
 
     def __init__(self, cfg, *, generator=None, device=None):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         kw = dict(generator=generator, device=device)
         blocks = []
         for _ in range(cfg.n_blocks):
             b = nn.Module()
-            for i in range(len(cfg.pattern)):
-                setattr(b, f"slot{i}", _slot(cfg, **kw))
+            for i, kind in enumerate(cfg.pattern):
+                setattr(b, f"slot{i}", _slot(cfg, i, kind, **kw))
             blocks.append(b)
         self.blocks = nn.ModuleList(blocks)
         self.embed = embed_init(cfg, **kw)
@@ -118,7 +134,8 @@ class DecoderLM(nn.Module):
 
 def forward(cfg, model, tokens, *, prefix_embeds=None, remat: bool = True,
             mesh=None, sp: bool = False):
-    """tokens: [B, S] integer -> hidden [B, S(+P), D] bf16, aux loss (0)."""
+    """tokens: [B, S] integer -> hidden [B, S(+P), D] bf16, aux loss (the
+    MoE slots' load-balance loss summed over blocks, fp32)."""
     _no_mesh(mesh, sp)
     x = model.embed.tokens[tokens.long()].to(COMPUTE_DTYPE)
     if prefix_embeds is not None:
@@ -127,15 +144,17 @@ def forward(cfg, model, tokens, *, prefix_embeds=None, remat: bool = True,
         x = torch.cat([pe, x], dim=1)
     b, s, _ = x.shape
     positions = torch.arange(s, device=x.device).expand(b, s)
+    auxs = []
     for bp in model.blocks:
         x = constrain_activations(x, mesh, seq_axis=sp)
         if remat and torch.is_grad_enabled():
-            x = checkpoint(block_apply, cfg, bp, x, positions,
-                           use_reentrant=False)
+            x, aux = checkpoint(block_apply, cfg, bp, x, positions,
+                                use_reentrant=False)
         else:
-            x = block_apply(cfg, bp, x, positions)
+            x, aux = block_apply(cfg, bp, x, positions)
+        auxs.append(aux)
     x = apply_norm(cfg, model.final_norm, x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, torch.stack(auxs).sum()
 
 
 def logits_head(cfg, model, x):
@@ -145,29 +164,38 @@ def logits_head(cfg, model, x):
 
 # ---------------------------------------------------------------- decode ---
 
-def decode_state_init(cfg, batch: int, max_len: int, *, device=None):
-    """Per-slot decode state, stacked over blocks: ``state["slot0"]["k"]``
-    is [n_blocks, B, S, Hkv, hd], as the reference stacks it."""
-    check_supported(cfg)
+def _kv_state(cfg, batch: int, max_len: int, nb: int, device):
     s = max_len if cfg.sliding_window is None else min(max_len,
                                                        cfg.sliding_window)
-    nb = cfg.n_blocks
     kv = (nb, batch, s, cfg.n_kv_heads, cfg.hd)
+    st = {"pos": torch.full((nb, s), -1, dtype=torch.int32, device=device)}
+    if KV_INT8:
+        st.update(
+            k=torch.zeros(kv, dtype=torch.int8, device=device),
+            v=torch.zeros(kv, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(kv[:-1], dtype=torch.bfloat16, device=device),
+            v_scale=torch.zeros(kv[:-1], dtype=torch.bfloat16, device=device))
+    else:
+        st.update(k=torch.zeros(kv, dtype=COMPUTE_DTYPE, device=device),
+                  v=torch.zeros(kv, dtype=COMPUTE_DTYPE, device=device))
+    return st
 
-    def one_slot():
-        st = {"pos": torch.full((nb, s), -1, dtype=torch.int32, device=device)}
-        if KV_INT8:
-            st.update(
-                k=torch.zeros(kv, dtype=torch.int8, device=device),
-                v=torch.zeros(kv, dtype=torch.int8, device=device),
-                k_scale=torch.zeros(kv[:-1], dtype=torch.bfloat16, device=device),
-                v_scale=torch.zeros(kv[:-1], dtype=torch.bfloat16, device=device))
-        else:
-            st.update(k=torch.zeros(kv, dtype=COMPUTE_DTYPE, device=device),
-                      v=torch.zeros(kv, dtype=COMPUTE_DTYPE, device=device))
-        return st
 
-    return {f"slot{i}": one_slot() for i in range(len(cfg.pattern))}
+def decode_state_init(cfg, batch: int, max_len: int, *, device=None):
+    """Per-slot decode state by slot kind, stacked over blocks, as the
+    reference stacks it: an attention slot's ``k`` is [n_blocks, B, S, Hkv,
+    hd], a mamba slot's ``h`` [n_blocks, B, di, n], an rwkv slot's
+    ``tm.wkv`` [n_blocks, B, H, dh, dh]."""
+    nb = cfg.n_blocks
+
+    def one_slot(kind):
+        if kind == "attn":
+            return _kv_state(cfg, batch, max_len, nb, device)
+        if kind == "mamba":
+            return mb.mamba_decode_init(cfg, batch, nb, device=device)
+        return rk.rwkv_decode_init(cfg, batch, nb, device=device)
+
+    return {f"slot{i}": one_slot(kind) for i, kind in enumerate(cfg.pattern)}
 
 
 def _quant(x):
@@ -178,11 +206,10 @@ def _quant(x):
     return q, s.to(torch.bfloat16)
 
 
-def _slot_decode(cfg, p, st, blk: int, x, pos):
-    """One slot of one block; writes the new K/V into ``st`` in place.
-    ``pos`` is a 0-d int64 tensor on the device, as the reference's traced
-    position: nothing here reads it on the host."""
-    h = apply_norm(cfg, p.norm1, x)
+def _attn_decode(cfg, p, st, blk: int, h, pos):
+    """Attention against block ``blk``'s KV cache; writes the new K/V into
+    ``st`` in place.  ``pos`` is a 0-d int64 tensor on the device, as the
+    reference's traced position: nothing here reads it on the host."""
     s_max = st["k"].shape[2]
     if cfg.sliding_window is not None:
         write = pos % s_max  # ring layout; cache "pos" keeps absolutes
@@ -204,12 +231,31 @@ def _slot_decode(cfg, p, st, blk: int, x, pos):
     st["k"][blk].index_copy_(1, write, k_new)
     st["v"][blk].index_copy_(1, write, v_new)
     st["pos"][blk].index_copy_(0, write, pos.reshape(1).to(torch.int32))
+    return a
+
+
+def _slot_decode(cfg, p, st, blk: int, x, pos, kind):
+    """One slot of one block; updates the slot's state rows in place."""
+    h = apply_norm(cfg, p.norm1, x)
+    if kind == "attn":
+        a = _attn_decode(cfg, p, st, blk, h, pos)
+    elif kind == "mamba":
+        a = mb.mamba_decode(cfg, p.mamba, h, st["conv"][blk], st["h"][blk])
+    else:
+        a = rk.rwkv_apply(cfg, p.rwkv, h, shift=st["tm"]["shift"][blk],
+                          wkv=st["tm"]["wkv"][blk])
     # The reference's decode takes the sequential residual form even for a
     # parallel_block config (command-r), unlike its forward; the port
     # follows the reference (ROADMAP Queue 3).
     x = x + a
     h2 = apply_norm(cfg, p.norm2, x)
-    return x + mlp_apply(cfg, p.mlp, h2)
+    if kind == "rwkv":
+        m = rk.rwkv_channel_mix(cfg, p.cmix, h2, shift=st["cm"]["shift"][blk])
+    elif hasattr(p, "moe"):
+        m, _ = moe_mod.moe_apply(cfg, p.moe, h2)
+    else:
+        m = mlp_apply(cfg, p.mlp, h2)
+    return x + m
 
 
 def decode_step(cfg, model, state, tokens, pos):
@@ -225,8 +271,8 @@ def decode_step(cfg, model, state, tokens, pos):
         pos = torch.full((), pos, dtype=torch.int64, device=tokens.device)
     x = model.embed.tokens[tokens.long()].to(COMPUTE_DTYPE)
     for blk, bp in enumerate(model.blocks):
-        for i in range(len(cfg.pattern)):
+        for i, kind in enumerate(cfg.pattern):
             x = _slot_decode(cfg, getattr(bp, f"slot{i}"), state[f"slot{i}"],
-                             blk, x, pos)
+                             blk, x, pos, kind)
     x = apply_norm(cfg, model.final_norm, x)
     return logits_head(cfg, model, x)[:, -1], state

@@ -1,11 +1,14 @@
 """Serving-step builders: prefill, decode and greedy generation.
 
-Port of `repro.train.serve`.  The decode state is updated in place.  On
-a CUDA device ``greedy_generate`` replays its decode step as a CUDA
-graph (``GraphedDecode``): a decode step is some 4,000 small PyTorch
-ops for internlm2-1.8b, and launching them from the host costs more
-than the card's work.  The graph runs the same kernels on the same
-buffers, so the numbers are the eager step's.
+Port of `repro.train.serve`.  The decode state (KV caches, Mamba conv
+windows and SSM states, RWKV shifts and WKV states) is updated in
+place.  On a CUDA device ``greedy_generate`` replays its decode step as
+a CUDA graph (``GraphedDecode``): a decode step is some 4,000 small
+PyTorch ops for internlm2-1.8b, and launching them from the host costs
+more than the card's work.  The graph runs the same kernels on the same
+buffers, so the numbers are the eager step's.  The encoder-decoder is
+served through ``prefill_fn`` and ``decode_fn`` with ``batch["memory"]``;
+``greedy_generate`` has no encoder-decoder branch, as in the reference.
 """
 from __future__ import annotations
 

@@ -19,10 +19,10 @@ from repro.dist import fault as jfault
 from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.dist import fault as tfault
 from repro_torch.models import convert
-from torch_lm_common import DENSE_ARCHS, configs, jax_params, np_tree, torch_model
+from torch_lm_common import LM_ARCHS, configs, jax_params, np_tree, torch_model
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_reference_checkpoint_restores_in_the_port(arch, tmp_path):
     jcfg, tcfg = configs(arch)
     jp = jax_params(jcfg)
@@ -39,7 +39,10 @@ def test_reference_checkpoint_restores_in_the_port(arch, tmp_path):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "command-r-35b", "internvl2-1b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "command-r-35b", "internvl2-1b",
+                                  "mixtral-8x7b", "qwen3-moe-235b-a22b",
+                                  "jamba-1.5-large-398b", "rwkv6-7b",
+                                  "seamless-m4t-medium"])
 def test_port_checkpoint_restores_in_the_reference(arch, tmp_path):
     jcfg, tcfg = configs(arch)
     model = torch_model(tcfg, jax_params(jcfg, seed=2))

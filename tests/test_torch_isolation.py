@@ -26,14 +26,16 @@ def _forbidden(name: str) -> bool:
     return top in ("jax", "jaxlib", "repro")
 
 
-# the dense LM slice: every module it added is among the scanned sources
+# the model zoo's slices: every module they added is among the scanned
+# sources
 LM_MODULES = ["configs/__init__.py", "configs/base.py", "configs/genasm.py",
               "configs/internlm2_1_8b.py", "models/layers.py",
               "models/attention.py", "models/frontends.py",
               "models/transformer.py", "models/model_zoo.py",
-              "models/convert.py", "train/serve.py", "train/optimizer.py",
-              "train/loop.py", "ckpt/checkpoint.py", "dist/fault.py",
-              "launch/train.py"]
+              "models/convert.py", "models/moe.py", "models/mamba.py",
+              "models/rwkv6.py", "models/encdec.py", "train/serve.py",
+              "train/optimizer.py", "train/loop.py", "ckpt/checkpoint.py",
+              "dist/fault.py", "launch/train.py"]
 
 
 def test_lm_modules_are_scanned():

@@ -8,9 +8,12 @@ moments bit for bit (the fp32 moments before rounding differ by at most
 an ulp, which the round to bf16 absorbs), fp32 moments within 1e-6 of
 their leaf's largest magnitude, as the parameters.  Three
 ``build_train_step`` steps at ``microbatches=2`` from the same weights:
-the losses within 2e-2.  The trainer on the CPU: a falling loss, and a
-resume.
+the losses within 2e-2, for every LM arch (the FP32_ARCHS with fp32
+activations in both packages, torch_lm_common).  The trainer on the CPU:
+a falling loss, and a resume; the encoder-decoder's frames drawn as the
+reference's trainer draws them.
 """
+import contextlib
 import re
 
 import jax
@@ -25,8 +28,9 @@ from repro.train import optimizer as jopt
 from repro_torch.launch import train as tlaunch
 from repro_torch.train import loop as tloop
 from repro_torch.train import optimizer as topt
-from torch_lm_common import (DENSE_ARCHS, batch_np, configs, jax_params,
-                             to_jax, to_torch, torch_model)
+from torch_lm_common import (FP32_ARCHS, LM_ARCHS, batch_np, configs,
+                             fp32_activations, jax_params, to_jax, to_torch,
+                             torch_model)
 
 SHAPES = {"w": (64, 128), "emb": (512, 64), "scale": (64,),
           "stacked": (2, 4, 16, 64)}
@@ -102,12 +106,17 @@ def test_missing_gradient_counts_as_zero():
     assert torch.all(p["b"] < 2.0)
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCHS)
+@pytest.mark.parametrize("arch", LM_ARCHS)
 def test_three_train_steps_microbatched(arch):
     """Three steps of 4 sequences in 2 microbatches from the same weights."""
     jcfg, tcfg = configs(arch)
     jp = jax_params(jcfg)
     model = torch_model(tcfg, jp)
+    with (fp32_activations() if arch in FP32_ARCHS else contextlib.nullcontext()):
+        _three_steps(jcfg, tcfg, jp, model)
+
+
+def _three_steps(jcfg, tcfg, jp, model):
     adamw = jopt.AdamWConfig(lr=5e-3, warmup_steps=2, total_steps=50)
     jt = jloop.TrainConfig(microbatches=2, adamw=adamw)
     tt = tloop.TrainConfig(microbatches=2, adamw=topt.AdamWConfig(*adamw))
@@ -158,6 +167,46 @@ def test_init_state_cpu():
     assert sum(p.numel() for p in model.parameters()) == sum(
         int(np.prod(a.shape)) for a in jax.tree.leaves(jax.eval_shape(
             lambda: jzoo.init(jcfg, jax.random.PRNGKey(0)))))
+
+
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "internvl2-1b", "yi-6b"])
+def test_trainer_batches_are_the_references(arch, monkeypatch):
+    """The trainer feeds the reference trainer's batches, key for key and
+    value for value: tokens from the same pool, then the encoder-decoder's
+    frames or the VLM's prefix embeddings, drawn from the same stream in
+    the same order."""
+    from repro.launch import train as jlaunch
+
+    seen = {"jax": [], "torch": []}
+
+    def jbuild(cfg, tcfg):
+        def step(params, opt, batch):
+            jax.debug.callback(
+                lambda b: seen["jax"].append({k: np.asarray(v) for k, v in b.items()}),
+                batch)
+            zero = jnp.float32(0)
+            return params, opt, {"loss": zero, "acc": zero, "grad_norm": zero}
+        return step
+
+    def tbuild(cfg, tcfg):
+        def step(params, opt, batch):
+            seen["torch"].append({k: v.numpy() for k, v in batch.items()})
+            return params, opt, {"loss": 0.0, "acc": 0.0, "grad_norm": 0.0}
+        return step
+
+    monkeypatch.setattr(jlaunch.train_loop, "build_train_step", jbuild)
+    monkeypatch.setattr(tlaunch.train_loop, "build_train_step", tbuild)
+    args = ["--arch", arch, "--smoke", "--steps", "3", "--seq", "16",
+            "--batch", "2"]
+    jlaunch.main(args)
+    tlaunch.main(args + ["--device", "cpu"])
+    jax.effects_barrier()
+    assert len(seen["jax"]) == len(seen["torch"]) == 3
+    for want, got in zip(seen["jax"], seen["torch"]):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype, k
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 LOSS = re.compile(r"step\s+(\d+) loss=([0-9.]+) acc=([0-9.]+) gnorm=([0-9.]+)")
