@@ -122,6 +122,26 @@ and sequence-to-graph read-mapping deployments end to end through
                  (prefill with frames at 4 x 1,024, decode against its
                  memory, the trainer's entry point in a subprocess and its
                  resume)
+ 15. dist      — the distribution and dry-run plane: the serve phase's
+                 reference and its first 2,048 reads through
+                 `genomics.pipeline` (ReadBatches -> Prefetcher on cuda:0 ->
+                 map_stream on cuda_dc_v2, 256 a batch), each batch equal to
+                 `map_batch` called directly and the rows equal to the serve
+                 phase's PAF rows, reads/s beside the direct loop's; then, in
+                 a child process with a one-rank NCCL world, internlm2-1.8b
+                 at full size trained 2 steps (microbatches 2, 4 x 512) on a
+                 1x1 ("data", "model") mesh with `dist.sharding` DTensor
+                 parameters, optimizer state and batches, against the
+                 unsharded step from the same weights (loss within 1e-2,
+                 grad norm 3e-2 relative), the reduced mixtral the same way
+                 (the MoE dispatch constraint), `train.grad_compress` on
+                 internlm2's whole fp32 gradient (the first 2^20 values bit
+                 for bit against the CPU; CUDA-event times beside the bytes
+                 bound) and the pod mean over a one-rank pod group against
+                 its formula; beside the child (after the read pipeline,
+                 whose times it would share the host with), `python -m
+                 repro_torch.launch.dryrun --all` (no cell may record an
+                 error; cells that fit 80 GB, per mesh)
 
 Each phase prints one JSON line.  The kernels line precedes the card's
 nvidia-smi line, and the last line is ``{"ok": true, "device": {...}}``.
@@ -282,6 +302,18 @@ S2S = dict(batch=4, seq=1024, prefix=16)
 S2S_TRAIN_ARGS = ["--arch", "seamless-m4t-medium", "--steps", "4", "--seq",
                   "512", "--batch", "4", "--ckpt-dir", "build/lm_ck_s2s",
                   "--save-every", "2"]
+# the dist phase: the serve phase's reference and first reads through the
+# read pipeline on cuda_dc_v2; in a child process (a one-rank NCCL world)
+# internlm2-1.8b trained at full size on a 1x1 ("data", "model") mesh
+# against the unsharded step from the same weights (the CPU tests'
+# tolerances, tests/test_torch_dist.py), the reduced mixtral the same way
+# with fp32 activations, the int8 compression on internlm2's whole fp32
+# gradient (card against CPU on its first values) and the pod mean over a
+# one-rank pod group; the dry run of every cell, beside the child
+DIST_READS, DIST_BATCH = 2048, 256
+DIST_TRAIN = dict(steps=2, microbatches=2, batch=4, seq=512)
+DIST_LOSS_TOL, DIST_REL_TOL = 1e-2, 3e-2
+DIST_BITWISE, DIST_PSUM = 1 << 20, 1 << 26
 
 
 def emit(phase: str, **fields) -> None:
@@ -2461,6 +2493,352 @@ def lm_zoo_phase(torch, np, dev) -> None:
          seconds_by_run=seconds, card=card_line())
 
 
+# ------------------------------------------------------------------ dist ----
+def dist_pipeline(torch, ops, sg, device: str = "cuda:0") -> int:
+    """The read pipeline on the card: the serve phase's first DIST_READS
+    reads through ReadBatches -> Prefetcher -> map_stream on cuda_dc_v2,
+    against `map_batch` called directly on the same batches and against
+    the serve phase's PAF rows.  Returns the stream's v2 launches."""
+    from types import SimpleNamespace
+
+    from repro_torch.core import mapper
+    from repro_torch.genomics import io, pipeline
+
+    dev = torch.device(device)
+    svc = sg.setup(sg.parse_args(FULL_ARGS + ["--reads", str(FULL_READS),
+                                              "--device", device]))
+    reads = list(svc.reads[:DIST_READS])
+    c = svc.config
+    cap = min(b for b in c.buckets if b >= max(len(r) for r in reads))
+    kw = dict(cfg=c.genasm, p_cap=cap, filter_bits=min(c.filter_bits, cap),
+              filter_k=c.filter_k, max_candidates=c.max_candidates,
+              minimizer_w=c.minimizer_w, minimizer_k=c.minimizer_k,
+              backend="cuda_dc_v2")
+    index, _ = svc.index.current()
+    batches = pipeline.ReadBatches(reads, batch=DIST_BATCH, cap=cap)
+
+    torch.cuda.synchronize(dev)
+    t = time.perf_counter()
+    direct = {b: mapper.map_batch(index, torch.from_numpy(arr).to(dev),
+                                  torch.from_numpy(lens).to(dev), **kw)
+              for b, arr, lens in batches}
+    torch.cuda.synchronize(dev)
+    direct_s = time.perf_counter() - t
+
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    streamed = {}
+    with pipeline.Prefetcher(iter(batches), device=dev) as pf:
+        for b, res in pipeline.map_stream(index, pf, **kw):
+            streamed[b] = res
+    torch.cuda.synchronize(dev)
+    stream_s = time.perf_counter() - t
+    launches = ops.launch_counts()
+
+    same = sorted(streamed) == sorted(direct) and all(
+        torch.equal(getattr(streamed[b], f), getattr(direct[b], f))
+        for b in direct for f in direct[b]._fields)
+    rows = []
+    for b, res in sorted(streamed.items()):
+        fields = {f: getattr(res, f).cpu().numpy() for f in
+                  ("position", "distance", "ops", "n_ops")}
+        for i in range(DIST_BATCH):
+            gid = b * DIST_BATCH + i
+            if gid < len(reads) and fields["position"][i] >= 0:
+                rows.append(sg.paf_row(gid, SimpleNamespace(
+                    read_len=min(len(reads[gid]), cap),
+                    position=int(fields["position"][i]),
+                    distance=int(fields["distance"][i]),
+                    ops=fields["ops"][i], n_ops=int(fields["n_ops"][i])),
+                    svc.ref_len))
+    io.write_paf(OUT / "dist_stream.paf", sg.strip_gids(rows))
+    want = paf_lines_below(OUT / "full_cuda_dc_v2.paf", DIST_READS)
+    got = (OUT / "dist_stream.paf").read_text().splitlines()
+    emit("dist_stream", reads=len(reads), batch=DIST_BATCH, cap=cap,
+         batches=len(streamed), rows=len(got), serve_rows=len(want),
+         identical_rows=got == want, equal_to_map_batch=same,
+         stream_s=stream_s, stream_reads_per_s=len(reads) / stream_s,
+         direct_s=direct_s, direct_reads_per_s=len(reads) / direct_s,
+         launches=launches, card=card_line())
+    check(same, "map_stream differs from map_batch on the same batches")
+    check(got == want, "the stream's PAF rows differ from the serve phase's")
+    check(launches["window_dc_batch_v2"] > 0, "dist stream: v2 not launched")
+    return launches["window_dc_batch_v2"]
+
+
+def dist_batch(torch, np, cfg, rng, b: int, s: int, dev) -> dict:
+    toks = rng.integers(0, cfg.vocab, (b, s))
+    return {"tokens": torch.as_tensor(toks, dtype=torch.int32, device=dev),
+            "targets": torch.as_tensor(np.roll(toks, -1, 1), dtype=torch.int32,
+                                       device=dev),
+            "mask": torch.ones((b, s), dtype=torch.float32, device=dev)}
+
+
+def dist_steps(torch, dev, step, model, opt, batches, mesh=None) -> list[dict]:
+    """``step`` over ``batches``: loss, grad norm and seconds of each; with
+    a mesh the batches go in as DTensors (``batch_specs``)."""
+    from repro_torch.dist import sharding as shd
+
+    out = []
+    for b in batches:
+        if mesh is not None:
+            b = shd.shard_put(b, mesh, shd.batch_specs(b, mesh))
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        _, opt, met = step(model, opt, b)
+        torch.cuda.synchronize(dev)
+        out.append(dict(loss=float(met["loss"]),
+                        grad_norm=float(met["grad_norm"]),
+                        step_s=time.perf_counter() - t))
+    return out
+
+
+def dist_sharded_vs_plain(torch, dev, cfg, tcfg, model, batches) -> dict:
+    """Train ``model`` over ``batches`` unsharded, then from the same
+    weights on a 1x1 ("data", "model") mesh with DTensor parameters,
+    optimizer state and batches; returns both runs and their peak device
+    memory."""
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.train import loop
+    from repro_torch.train import optimizer as opt_mod
+
+    w0 = {k: p.detach().to("cpu", copy=True) for k, p in model.named_parameters()}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    opt = opt_mod.init(tcfg.adamw, dict(model.named_parameters()))
+    plain = dist_steps(torch, dev, loop.build_train_step(cfg, tcfg), model,
+                       opt, batches)
+    plain_peak = torch.cuda.max_memory_allocated(dev)
+    del opt
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(w0[k])
+    del w0
+    mesh = make_debug_mesh((1, 1), ("data", "model"), device_type="cuda")
+    pspecs = shd.param_specs(model, mesh)
+    opt = opt_mod.init(tcfg.adamw, dict(model.named_parameters()))
+    opt = {"step": opt["step"], "m": shd.shard_put(opt["m"], mesh, pspecs),
+           "v": shd.shard_put(opt["v"], mesh, pspecs)}
+    shd.shard_put(model, mesh, pspecs)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    sharded = dist_steps(torch, dev, loop.build_train_step(cfg, tcfg, mesh),
+                         model, opt, batches, mesh)
+    return {"plain": plain, "plain_peak": plain_peak, "sharded": sharded,
+            "sharded_peak": torch.cuda.max_memory_allocated(dev),
+            "placements": {k: [repr(x) for x in p.placements]
+                           for k, p in list(model.named_parameters())[:3]}}
+
+
+def dist_close(runs: dict) -> bool:
+    return all(abs(s["loss"] - p["loss"]) <= DIST_LOSS_TOL and
+               abs(s["grad_norm"] - p["grad_norm"]) <= DIST_REL_TOL * abs(p["grad_norm"])
+               for s, p in zip(runs["sharded"], runs["plain"]))
+
+
+def dist_compress(torch, dev, grad) -> None:
+    """`train.grad_compress` on ``grad`` (one fp32 vector) on the card: the
+    first DIST_BITWISE values' int8 payload, scales and dequantized values
+    against the CPU bit for bit; CUDA-event times beside the bytes bound;
+    the pod mean over a one-rank pod group against its formula."""
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.train import grad_compress as gc
+
+    card = card_line()
+    n = grad.numel()
+    q, scale, _ = gc._quantize(grad)
+    m, blocks = DIST_BITWISE, DIST_BITWISE // gc.BLOCK
+    cq, cs, _ = gc._quantize(grad[:m].cpu())
+    bitwise = (torch.equal(q[:blocks].cpu(), cq)
+               and torch.equal(scale[:blocks].cpu(), cs)
+               and torch.equal(gc._dequantize(q[:blocks], scale[:blocks], m).cpu(),
+                               gc._dequantize(cq, cs, m)))
+    quant_ms = time_ms(torch, lambda: gc._quantize(grad), trials=3)
+    deq_ms = time_ms(torch, lambda: gc._dequantize(q, scale, n), trials=3)
+    n_pad = q.numel()
+    quant_bytes = 4 * n + n_pad + 4 * scale.numel()
+    deq_bytes = n_pad + 4 * scale.numel() + 4 * n
+    del q, scale
+
+    pod = make_debug_mesh((1,), ("pod",), device_type="cuda")
+    x = grad[:DIST_PSUM]
+    r = 1e-3 * torch.roll(x, 1)
+    mean, resid = gc.compressed_psum_mean(x, r, pod.get_group("pod"))
+    xf = x + r
+    q1, s1, _ = gc._quantize(xf)
+    local = gc._dequantize(q1, s1, x.numel())
+    # the reference's formula at one pod: qsum = q, ssum = scale, nsh = 1
+    want = (q1.to(torch.int32).float() * (s1 / 1.0)).reshape(-1)[:x.numel()] / 1.0
+    tree = gc.make_pod_compressed_allreduce(pod, {"g": ()})({"g": x}, {"g": r})
+    psum_ok = (torch.equal(mean, want) and torch.equal(resid, xf - local)
+               and torch.equal(tree[0]["g"], mean))
+    emit("dist_compress", values=n, bytes=4 * n, block=gc.BLOCK,
+         bitwise_values=m, card_equals_cpu=bitwise,
+         quantize_ms=quant_ms,
+         quantize_bound_ms=quant_bytes / memory_bytes_per_s(card) * 1e3,
+         dequantize_ms=deq_ms,
+         dequantize_bound_ms=deq_bytes / memory_bytes_per_s(card) * 1e3,
+         pod_mean_values=x.numel(), pod_mean_equals_formula=psum_ok,
+         card=card)
+    check(bitwise, "int8 compression: the card differs from the CPU")
+    check(psum_ok, "the one-pod mean differs from its formula")
+
+
+def dist_train(torch, np, dev) -> None:
+    """internlm2-1.8b at full size, sharded against unsharded, and the
+    compression on its whole gradient."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model_zoo
+    from repro_torch.train import loop
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = get_config(LM_ARCH)
+    spec = DIST_TRAIN
+    tcfg = loop.TrainConfig(microbatches=spec["microbatches"],
+                            adamw=AdamWConfig(warmup_steps=1))
+    model = model_zoo.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    rng = np.random.default_rng(40)
+    batches = [dist_batch(torch, np, cfg, rng, spec["batch"], spec["seq"], dev)
+               for _ in range(spec["steps"])]
+    # the gradient that the compression runs on: one forward and backward
+    loss, _ = model_zoo.loss_fn(cfg, model, batches[0])
+    loss.backward()
+    grad = torch.cat([p.grad.flatten() for p in model.parameters()])
+    for p in model.parameters():
+        p.grad = None
+    dist_compress(torch, dev, grad)
+    del grad, loss
+    runs = dist_sharded_vs_plain(torch, dev, cfg, tcfg, model, batches)
+    ok = dist_close(runs)
+    emit("dist_train", arch=LM_ARCH, params=n_params, mesh="1x1 (data, model)",
+         **spec, adamw=tcfg.adamw._asdict(), **runs,
+         loss_tol=DIST_LOSS_TOL, grad_norm_rel_tol=DIST_REL_TOL, close=ok,
+         card=card_line())
+    check(n_params > 1.88e9, "dist train: not the full configuration")
+    check(ok, "dist train: the sharded steps differ from the unsharded")
+    del model
+    torch.cuda.empty_cache()
+
+
+def dist_moe(torch, np, dev) -> None:
+    """The CPU tests' reduced mixtral, sharded against unsharded with fp32
+    activations: `moe._constrain` runs on the card."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import reduced
+    from repro_torch.models import model_zoo, moe
+    from repro_torch.train import loop
+    from repro_torch.train.optimizer import AdamWConfig
+
+    cfg = reduced(get_config("mixtral-8x7b"))
+    tcfg = loop.TrainConfig(microbatches=2, adamw=AdamWConfig(
+        lr=5e-3, warmup_steps=2, total_steps=50))
+    calls, real = [0], moe._constrain
+
+    def counted(x, mesh, want):
+        calls[0] += mesh is not None
+        return real(x, mesh, want)
+
+    moe._constrain = counted
+    try:
+        with zoo_fp32(torch):
+            model = model_zoo.init(cfg, torch.Generator(device=dev).manual_seed(1),
+                                   device=dev)
+            rng = np.random.default_rng(41)
+            batches = [dist_batch(torch, np, cfg, rng, 4, 32, dev)]
+            runs = dist_sharded_vs_plain(torch, dev, cfg, tcfg, model, batches)
+    finally:
+        moe._constrain = real
+    ok = dist_close(runs)
+    emit("dist_moe", arch=cfg.name, plain=runs["plain"], sharded=runs["sharded"],
+         constrain_calls=calls[0], close=ok, card=card_line())
+    check(calls[0] > 0, "dist moe: the dispatch constraint did not run")
+    check(ok, "dist moe: the sharded step differs from the unsharded")
+
+
+def dist_child() -> int:
+    """``chip_smoke.py --dist-child``: the dist phase's parts that need a
+    process group, in a process of their own (the rest of the script never
+    sees one): a one-rank NCCL world on cuda:0 through a file store."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    store = OUT / "dist_store"
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        dist_train(torch, np, dev)
+        dist_moe(torch, np, dev)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dist_dryrun_check(proc, results: Path, started: float) -> None:
+    """The dry run's records: no cell in error, 66 cells, the cells that fit
+    80 GB per mesh; its seconds run from ``started`` (wall clock) to its
+    last write of ``results``."""
+    out, err = proc.communicate(timeout=600)
+    seconds = results.stat().st_mtime - started
+    (OUT / "dist_dryrun.log").write_text(out + err)
+    check(proc.returncode == 0, f"dry run exited {proc.returncode}: {err[-3000:]}")
+    res = json.loads(results.read_text())
+    errors = sorted(k for k, v in res.items() if "error" in v)
+    fits = {}
+    for v in res.values():
+        if "memory" in v:
+            fits.setdefault(v["mesh"], [0, 0])
+            fits[v["mesh"]][0] += v["memory"]["fits"]
+            fits[v["mesh"]][1] += 1
+    emit("dist_dryrun", cells=len(res), errors=errors, seconds=seconds,
+         fits_80gb={m: f"{a} of {b}" for m, (a, b) in fits.items()},
+         lower_s_max=max(v.get("lower_s", 0.0) for v in res.values()),
+         card=card_line())
+    check(not errors, f"dry-run cells recorded errors: {errors}")
+    check(len(res) == 66, f"dry run: {len(res)} cells, not 66")
+
+
+def dist_phase(torch, np, ops, sg) -> int:
+    """The distribution and dry-run plane on the card: the read pipeline
+    alone (its reads/s are host-bound), then `dist_child` (a child process
+    of its own) with the dry run beside it in a subprocess; returns the
+    read pipeline's v2 launches."""
+    import os
+
+    t_phase = time.perf_counter()
+    launches = dist_pipeline(torch, ops, sg)
+    results = OUT / "dryrun_results_torch.json"
+    results.unlink(missing_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
+    t_dry = time.time()
+    dry = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun",
+                            "--all", "--results", str(results)], cwd=ROOT,
+                           env=env, stdout=subprocess.PIPE,
+                           stderr=subprocess.PIPE, text=True)
+    try:
+        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                               "--dist-child"], cwd=ROOT, capture_output=True,
+                              text=True, timeout=600)
+        print(proc.stdout, end="", flush=True)
+        (OUT / "dist_child.log").write_text(proc.stdout + proc.stderr)
+        check(proc.returncode == 0,
+              f"dist child exited {proc.returncode}: {proc.stderr[-3000:]}")
+        dist_dryrun_check(dry, results, t_dry)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    emit("dist_done", seconds=time.perf_counter() - t_phase, card=card_line())
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2523,6 +2901,8 @@ def main() -> int:
     segram_phase(torch, np, dev)
     lm_phase(torch, np, dev)
     lm_zoo_phase(torch, np, dev)
+    rows["window_dc_batch_v2"]["launches_by_site"]["dist_stream"] = dist_phase(
+        torch, np, ops, sg)
     for name, n in launches.items():
         rows[name]["launches"] = n
     emit("done", seconds=time.perf_counter() - t_start)
@@ -2541,4 +2921,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(obs_child() if sys.argv[1:] == ["--obs-child"] else main())
+    CHILDREN = {"--obs-child": obs_child, "--dist-child": dist_child}
+    sys.exit(CHILDREN[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in CHILDREN
+             else main())

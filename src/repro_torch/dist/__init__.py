@@ -1,1 +1,7 @@
-"""Distribution: host-side fault tolerance (work queue, heartbeat, restartable loop)."""
+"""Distribution: the sharding resolver and host-side fault tolerance.
+
+* ``sharding`` — resolves the models' logical-axis annotations into
+  per-dimension specs for a mesh (a DeviceMesh or a named-size mapping)
+  and DTensor placements; ``shard_put``, ``constrain_activations``.
+* ``fault`` — the work queue, the heartbeat and the restartable loop.
+"""

@@ -7,6 +7,11 @@ which draws seeded inputs at a shape so that ``wrapper(*args, **kwargs)``
 and ``plain(*args, **kwargs)`` can be held against each other.
 `reset_launch_counts` / `launch_counts` read the wrappers' ``launches``
 counters, which only a kernel launch increments.
+
+This module plays the role of the reference's `repro.kernels.ref` (the
+pure-jnp oracle of every Pallas kernel): each entry's ``plain`` is its
+kernel's oracle, and on a CPU tensor the wrapper runs it.  The port has
+no ``kernels/ref.py`` of its own.
 """
 from __future__ import annotations
 

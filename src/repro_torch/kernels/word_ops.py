@@ -42,14 +42,18 @@ def shape() -> dict:
 
 
 def word_ops_chain(mix: str, n: int, threads: int, *,
-                   device="cpu") -> torch.Tensor:
-    """Each of ``threads`` threads' final state after ``n`` chars (even)."""
+                   device="cuda") -> torch.Tensor:
+    """Each of ``threads`` threads' final state after ``n`` chars (even):
+    the kernel on a CUDA ``device`` (which must be visible), the plain
+    version on the CPU."""
     if mix not in MIXES:
         raise ValueError(f"mix must be one of {MIXES}, got {mix!r}")
     if n < 0 or n % 2 or threads <= 0:
         raise ValueError(f"need an even n >= 0 and threads > 0, got {n}, "
                          f"{threads}")
-    dev = torch.device(device)
+    from repro_torch.models.model_zoo import resolve_device
+
+    dev = resolve_device(device)
     if dev.type != "cuda":
         return _plain(mix, n, threads, dev)
     if dev.index is None:

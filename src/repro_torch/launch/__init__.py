@@ -1,1 +1,2 @@
-"""Entry points: ``python -m repro_torch.launch.serve_genomics``."""
+"""Entry points: ``python -m repro_torch.launch.serve_genomics``,
+``.train``, ``.dryrun`` and ``.report``."""

@@ -15,7 +15,7 @@ import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .layers import apply_rope, dense_init, holder
+from .layers import EMBED, HEADS, KV_HEADS, apply_rope, dense_init, holder
 
 NEG_INF = -1e30
 
@@ -35,6 +35,18 @@ def attn_init(cfg, d_model=None, *, generator=None, device=None):
         p["bk"] = torch.zeros((cfg.n_kv_heads, hd), device=device)
         p["bv"] = torch.zeros((cfg.n_kv_heads, hd), device=device)
     return holder(**p)
+
+
+# each parameter's logical axes (`repro_torch.dist.sharding`)
+ATTN_AXES = {
+    "wq": (EMBED, HEADS, None),
+    "wk": (EMBED, KV_HEADS, None),
+    "wv": (EMBED, KV_HEADS, None),
+    "wo": (HEADS, None, EMBED),
+    "bq": (HEADS, None),
+    "bk": (KV_HEADS, None),
+    "bv": (KV_HEADS, None),
+}
 
 
 def _proj(x, w):
@@ -95,7 +107,12 @@ def blockwise_attention(q, k, v, *, causal: bool, q_offset=0,
     """Chunked attention: q blocks × full KV, rematerialized per block.
 
     q: [B, Sq, H, Dh]; k/v: [B, Sk, Hkv, Dh].  Returns [B, Sq, H, Dh].
+    DTensors attend on their local shards (`_on_shards`).
     """
+    if hasattr(q, "to_local"):
+        return _on_shards(q, k, v, causal=causal, q_offset=q_offset,
+                          sliding_window=sliding_window, softcap=softcap,
+                          blk_q=blk_q)
     b, sq, h, dh = q.shape
     sk, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -115,6 +132,27 @@ def blockwise_attention(q, k, v, *, causal: bool, q_offset=0,
             outs.append(_q_block(*args))
     out = torch.stack(outs, dim=1)  # [B, nq, blk_q, hkv, g, dh]
     return out.reshape(b, sq, h, dh).to(q.dtype)
+
+
+def _on_shards(q, k, v, **kw):
+    """Blockwise attention of DTensor q/k/v on each rank's local shards.
+
+    Batch rows and heads attend independently, so a mesh dimension keeps
+    a batch (dim 0) or head (dim 2) shard where q, k and v all carry it
+    (the KV heads of a rank's query heads are then its own: heads are
+    split in whole contiguous groups); any other placement is replicated
+    first.  DTensor cannot take the core's einsums itself: they flatten
+    the sharded batch and head dims together.
+    """
+    from torch.distributed.tensor import DTensor, Replicate
+
+    mesh = q.device_mesh
+    keep = tuple(pq if pq == pk == pv and (pq.is_shard(0) or pq.is_shard(2))
+                 else Replicate()
+                 for pq, pk, pv in zip(q.placements, k.placements, v.placements))
+    q, k, v = (t.redistribute(mesh, keep) for t in (q, k, v))
+    out = blockwise_attention(q.to_local(), k.to_local(), v.to_local(), **kw)
+    return DTensor.from_local(out, mesh, keep, shape=q.shape, stride=q.stride())
 
 
 def attention(cfg, p, x, positions, *, causal=True):

@@ -17,7 +17,12 @@ def frontend_embed_shape(cfg, batch: int, length: int | None = None):
 
 
 def synth_frontend_embeds(cfg, batch: int, length: int | None = None,
-                          seed: int = 0, *, device="cpu"):
+                          seed: int = 0, *, device="cuda"):
+    """Random stub embeddings on ``device`` (``cuda`` raises without a
+    card; pass ``device="cpu"``)."""
+    from .model_zoo import resolve_device
+
+    device = resolve_device(device)
     shape = frontend_embed_shape(cfg, batch, length)
     gen = torch.Generator(device=device).manual_seed(seed)
     return torch.randn(shape, generator=gen, dtype=torch.float32,

@@ -20,6 +20,12 @@ from torch.utils.checkpoint import checkpoint
 
 COMPUTE_DTYPE = torch.bfloat16
 
+# logical axis names (resolved to mesh axes in `repro_torch.dist.sharding`)
+EMBED, MLP, HEADS, KV_HEADS, QKV, VOCAB, EXPERT, CONV, STATE, NONE = (
+    "embed", "mlp", "heads", "kv_heads", "qkv", "vocab", "expert", "conv",
+    "state", None,
+)
+
 
 def dense_init(shape, in_axis=0, *, generator=None, device=None) -> torch.Tensor:
     """U(-1/sqrt(fan_in), 1/sqrt(fan_in)) in fp32; ``in_axis`` may be a tuple."""
@@ -101,6 +107,13 @@ def mlp_init(cfg, d_model=None, d_ff=None, *, generator=None, device=None):
     return holder(wi=dense_init((d, f), **kw), wo=dense_init((f, d), **kw))
 
 
+MLP_AXES = {
+    "wi": (EMBED, MLP),
+    "wg": (EMBED, MLP),
+    "wo": (MLP, EMBED),
+}
+
+
 def mlp_apply(cfg, p, x):
     dt = x.dtype
     if cfg.act == "silu_glu":
@@ -122,6 +135,31 @@ def embed_init(cfg, *, generator=None, device=None):
 
 def _xent_chunk(xc, et, tc, mc):
     logits = (xc @ et).float()  # [B, c, V]
+    if hasattr(logits, "to_local"):
+        return _xent_on_shards(logits, tc, mc)
+    return _xent_sums(logits, tc, mc)
+
+
+def _xent_on_shards(logits, tc, mc):
+    """The chunk's sums from DTensor logits: the vocab dim gathered whole,
+    then each rank sums its own rows (targets and mask placed alike) and
+    the sums are partial over the mesh dims that split the rows.  DTensor's
+    gather along a sharded vocab dim, and its backward, have no rule that
+    takes these placements in every PyTorch release."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    mesh = logits.device_mesh
+    pl = tuple(Replicate() if p.is_partial() or p.is_shard(2) else p
+               for p in logits.placements)
+    logits = logits.redistribute(mesh, pl)
+    loss, acc = _xent_sums(logits.to_local(), tc.redistribute(mesh, pl).to_local(),
+                           mc.redistribute(mesh, pl).to_local())
+    sums = tuple(Partial() if p.is_shard() else Replicate() for p in pl)
+    return (DTensor.from_local(loss, mesh, sums),
+            DTensor.from_local(acc, mesh, sums))
+
+
+def _xent_sums(logits, tc, mc):
     lse = torch.logsumexp(logits, dim=-1)
     tgt = torch.gather(logits, -1, tc[..., None])[..., 0]
     loss = torch.sum((lse - tgt) * mc)

@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .layers import COMPUTE_DTYPE, dense_init, holder
+from .layers import COMPUTE_DTYPE, EMBED, MLP, dense_init, holder
 
 
 def mamba_init(cfg, *, generator=None, device=None):
@@ -40,6 +40,19 @@ def mamba_init(cfg, *, generator=None, device=None):
         D=torch.ones(di, device=device),
         out_proj=dense_init((di, d), **kw),
     )
+
+
+MAMBA_AXES = {
+    "in_proj": (EMBED, MLP),
+    "conv_w": (None, MLP),
+    "conv_b": (MLP,),
+    "x_proj": (MLP, None),
+    "dt_proj": (None, MLP),
+    "dt_bias": (MLP,),
+    "A_log": (MLP, None),
+    "D": (MLP,),
+    "out_proj": (MLP, EMBED),
+}
 
 
 def n_chunks(L: int, chunk: int) -> int:

@@ -23,12 +23,13 @@ reference:
 from __future__ import annotations
 
 import math
+from types import SimpleNamespace
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .layers import dense_init, holder
+from .layers import EMBED, EXPERT, MLP, dense_init, holder
 
 # dispatch-group size in tokens: the reference's constant, read at call time
 MOE_CHUNK_TOKENS = 16_384
@@ -45,6 +46,14 @@ def moe_init(cfg, *, generator=None, device=None):
     if cfg.act != "silu_glu":
         del p["wg"]
     return holder(**p)
+
+
+MOE_AXES = {
+    "router": (EMBED, None),
+    "wi": (EXPERT, EMBED, MLP),
+    "wg": (EXPERT, EMBED, MLP),
+    "wo": (EXPERT, MLP, EMBED),
+}
 
 
 def capacity(cfg, t: int) -> int:
@@ -78,14 +87,39 @@ def slots(cfg, tope, cap: int):
     return slot, keep
 
 
-def _moe_chunk(cfg, p, xt):
+def _constrain(x, mesh, want):
+    """The reference's sharding constraint: the DTensor ``x`` redistributed
+    to ``want`` as `dist.sharding._fit` resolves it; no-op without a mesh."""
+    if mesh is None:
+        return x
+    from repro_torch.dist.sharding import _fit, placements
+
+    return x.redistribute(mesh, placements(_fit(mesh, x.shape, want), mesh))
+
+
+def _moe_chunk(cfg, p, xt, mesh=None):
     """Route, dispatch, expert compute and combine for one token chunk.
-    xt: [T, D] -> ([T, D], aux scalar fp32)."""
+    xt: [T, D] -> ([T, D], aux scalar fp32).
+
+    With a mesh, ``xt`` and the parameters are DTensors.  Routing sees the
+    whole chunk, as the reference's global cumsum does under GSPMD: the
+    tokens and the router are replicated and routed as local tensors on
+    every rank alike; the ``[E, cap, D]`` dispatch and the expert outputs
+    are constrained over "model" (expert parallelism), and the combine
+    runs on the replicated expert outputs.
+    """
     m = cfg.moe
     t, d = xt.shape
     e, k = m.n_experts, m.top_k
     cap = capacity(cfg, t)
-    probs, topw, tope = route(cfg, p, xt)
+    if mesh is not None:
+        from repro_torch.dist.sharding import replicated_local, wrap_replicated
+
+        xt = replicated_local(xt)
+        probs, topw, tope = route(
+            cfg, SimpleNamespace(router=replicated_local(p.router)), xt)
+    else:
+        probs, topw, tope = route(cfg, p, xt)
 
     me = probs.mean(0)
     ce = (tope[..., None] == torch.arange(e, device=xt.device)).float().sum(1).mean(0)
@@ -95,6 +129,8 @@ def _moe_chunk(cfg, p, xt):
     tok_id = torch.arange(t * k, device=xt.device) // k  # no host sync
     disp = xt.new_zeros((e * cap + 1, d)).index_copy(0, slot, xt[tok_id])
     disp = disp[:-1].reshape(e, cap, d)
+    if mesh is not None:
+        disp = _constrain(wrap_replicated(disp, mesh), mesh, ("model", None, None))
 
     dt = xt.dtype
     if cfg.act == "silu_glu":
@@ -102,6 +138,8 @@ def _moe_chunk(cfg, p, xt):
     else:
         h = torch.square(F.relu(torch.bmm(disp, p.wi.to(dt))))
     eo = torch.bmm(h, p.wo.to(dt))  # [E, cap, D]
+    if mesh is not None:
+        eo = replicated_local(_constrain(eo, mesh, ("model", None, None)))
 
     eo_flat = torch.cat([eo.reshape(e * cap, d), eo.new_zeros((1, d))])
     w = (topw.reshape(-1) * keep).to(dt)
@@ -109,6 +147,8 @@ def _moe_chunk(cfg, p, xt):
     out = contrib[:, 0]
     for j in range(1, k):
         out = out + contrib[:, j]
+    if mesh is not None:
+        return wrap_replicated(out, mesh), wrap_replicated(aux, mesh)
     return out, aux
 
 
@@ -119,24 +159,23 @@ def moe_apply(cfg, p, x, mesh=None):
     least two that divide the tokens evenly, each recomputed in the
     backward; the aux loss is then the mean over chunks.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh needs dist/sharding.py, not yet ported (ROADMAP Queue 1)")
     b, s, d = x.shape
     t = b * s
     xt = x.reshape(t, d)
     n_chunks = max(t // MOE_CHUNK_TOKENS, 1)
     if t % n_chunks:
         n_chunks = 1  # irregular sizes: one chunk, as the reference
+    on_mesh = () if mesh is None else (mesh,)
     if n_chunks == 1:
-        out, aux = _moe_chunk(cfg, p, xt)
+        out, aux = _moe_chunk(cfg, p, xt, *on_mesh)
         return out.reshape(b, s, d), aux
     outs, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
     for xc in xt.reshape(n_chunks, t // n_chunks, d):
         if torch.is_grad_enabled():
-            o, a = checkpoint(_moe_chunk, cfg, p, xc, use_reentrant=False)
+            o, a = checkpoint(_moe_chunk, cfg, p, xc, *on_mesh,
+                              use_reentrant=False)
         else:
-            o, a = _moe_chunk(cfg, p, xc)
+            o, a = _moe_chunk(cfg, p, xc, *on_mesh)
         outs.append(o)
         aux = aux + a
     return torch.cat(outs).reshape(b, s, d), aux / n_chunks

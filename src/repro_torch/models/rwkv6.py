@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .layers import COMPUTE_DTYPE, dense_init, holder
+from .layers import COMPUTE_DTYPE, EMBED, HEADS, MLP, dense_init, holder
 from .mamba import n_chunks
 
 LORA_R = 64
@@ -37,6 +37,15 @@ def rwkv_init(cfg, *, generator=None, device=None):
         u=torch.zeros((h, dh), device=device),  # bonus (first-occurrence) term
         ln_x=torch.ones(d, device=device),
     )
+
+
+RWKV_AXES = {
+    "mu": (None, EMBED),
+    "wr": (EMBED, MLP), "wk": (EMBED, MLP), "wv": (EMBED, MLP),
+    "wg": (EMBED, MLP), "wo": (MLP, EMBED),
+    "w0": (EMBED,), "w_lora_a": (EMBED, None), "w_lora_b": (None, EMBED),
+    "u": (HEADS, None), "ln_x": (EMBED,),
+}
 
 
 def _time_shift(x, last=None):
@@ -113,6 +122,10 @@ def rwkv_channel_mix_init(cfg, *, generator=None, device=None):
     return holder(mu=torch.full((2, d), 0.5, device=device),
                   wk=dense_init((d, f), **kw), wv=dense_init((f, d), **kw),
                   wr=dense_init((d, d), **kw))
+
+
+RWKV_CM_AXES = {"mu": (None, EMBED), "wk": (EMBED, MLP), "wv": (MLP, EMBED),
+                "wr": (EMBED, MLP)}
 
 
 def rwkv_channel_mix(cfg, p, x, *, shift=None):

@@ -33,12 +33,6 @@ from .layers import (COMPUTE_DTYPE, apply_norm, dense_init, embed_init,
 KV_INT8 = False
 
 
-def _no_mesh(mesh, sp) -> None:
-    if mesh is not None or sp:
-        raise NotImplementedError(
-            "mesh/sp need dist/sharding.py, not yet ported (ROADMAP Queue 1)")
-
-
 def _slot(cfg, slot: int, kind: str, *, generator, device) -> nn.Module:
     """One slot's parameters, drawn in the reference's order: norm1, the
     mixer, norm2, then the channel mix, MoE or MLP."""
@@ -61,17 +55,17 @@ def _slot(cfg, slot: int, kind: str, *, generator, device) -> nn.Module:
     return m
 
 
-def _mlp_part(cfg, p, kind, h, aux):
+def _mlp_part(cfg, p, kind, h, aux, mesh):
     """The slot's second half on normed ``h``: (out, aux + its MoE aux)."""
     if kind == "rwkv":
         return rk.rwkv_channel_mix(cfg, p.cmix, h), aux
     if hasattr(p, "moe"):
-        m, a = moe_mod.moe_apply(cfg, p.moe, h)
+        m, a = moe_mod.moe_apply(cfg, p.moe, h, mesh)
         return m, aux + a
     return mlp_apply(cfg, p.mlp, h), aux
 
 
-def _slot_apply(cfg, p, x, positions, kind, aux):
+def _slot_apply(cfg, p, x, positions, kind, aux, mesh):
     h = apply_norm(cfg, p.norm1, x)
     if kind == "attn":
         a = attn.attention(cfg, p.attn, h, positions)
@@ -81,26 +75,20 @@ def _slot_apply(cfg, p, x, positions, kind, aux):
         a = rk.rwkv_apply(cfg, p.rwkv, h)
     if cfg.parallel_block:
         # command-r style: MLP on the same normed input, single residual add
-        m, aux = _mlp_part(cfg, p, kind, h, aux)
+        m, aux = _mlp_part(cfg, p, kind, h, aux, mesh)
         return x + a + m, aux
     x = x + a
-    m, aux = _mlp_part(cfg, p, kind, apply_norm(cfg, p.norm2, x), aux)
+    m, aux = _mlp_part(cfg, p, kind, apply_norm(cfg, p.norm2, x), aux, mesh)
     return x + m, aux
 
 
-def block_apply(cfg, bp, x, positions):
+def block_apply(cfg, bp, x, positions, mesh=None):
     """One block: (x, the block's aux loss fp32)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, kind in enumerate(cfg.pattern):
         x, aux = _slot_apply(cfg, getattr(bp, f"slot{i}"), x, positions,
-                             kind, aux)
+                             kind, aux, mesh)
     return x, aux
-
-
-def constrain_activations(x, mesh=None, seq_axis=False):
-    """No-op without a mesh (dist/sharding.py is not yet ported)."""
-    _no_mesh(mesh, seq_axis)
-    return x
 
 
 class DecoderLM(nn.Module):
@@ -135,9 +123,27 @@ class DecoderLM(nn.Module):
 def forward(cfg, model, tokens, *, prefix_embeds=None, remat: bool = True,
             mesh=None, sp: bool = False):
     """tokens: [B, S] integer -> hidden [B, S(+P), D] bf16, aux loss (the
-    MoE slots' load-balance loss summed over blocks, fp32)."""
-    _no_mesh(mesh, sp)
-    x = model.embed.tokens[tokens.long()].to(COMPUTE_DTYPE)
+    MoE slots' load-balance loss summed over blocks, fp32).
+
+    ``mesh``/``sp``: the parameters and inputs are DTensors on ``mesh``
+    (`dist.sharding.shard_put`), and the residual stream is constrained at
+    every block boundary (batch over the data axes; with ``sp`` the
+    sequence over "model", sequence parallelism).
+    """
+    from repro_torch.dist.sharding import sharded_ops
+
+    with sharded_ops(mesh):
+        return _forward(cfg, model, tokens, prefix_embeds, remat, mesh, sp)
+
+
+def _forward(cfg, model, tokens, prefix_embeds, remat, mesh, sp):
+    from repro_torch.dist.sharding import constrain_activations, gather_rows
+
+    if mesh is None:
+        x = model.embed.tokens[tokens.long()]
+    else:
+        x = gather_rows(model.embed.tokens, tokens)
+    x = x.to(COMPUTE_DTYPE)
     if prefix_embeds is not None:
         pe = prefix_embeds.to(COMPUTE_DTYPE) @ model.frontend_proj.w.to(
             COMPUTE_DTYPE)
@@ -148,10 +154,10 @@ def forward(cfg, model, tokens, *, prefix_embeds=None, remat: bool = True,
     for bp in model.blocks:
         x = constrain_activations(x, mesh, seq_axis=sp)
         if remat and torch.is_grad_enabled():
-            x, aux = checkpoint(block_apply, cfg, bp, x, positions,
+            x, aux = checkpoint(block_apply, cfg, bp, x, positions, mesh,
                                 use_reentrant=False)
         else:
-            x, aux = block_apply(cfg, bp, x, positions)
+            x, aux = block_apply(cfg, bp, x, positions, mesh)
         auxs.append(aux)
     x = apply_norm(cfg, model.final_norm, x)
     return x, torch.stack(auxs).sum()

@@ -33,9 +33,10 @@ The reference's ``predict_block_bt`` ranks Pallas batch tiles with
 `predict_time_s`; no CUDA kernel of the port takes a batch tile, so it
 has no counterpart here.
 
-Stdlib-only at import time (the `repro_torch.obs` contract): `torch`
-and `repro_torch.align` are imported lazily inside `DeviceSpec.for_device`
-and the measured-side helpers.
+Stdlib-only at import time (the `repro_torch.obs` contract): `torch`,
+`repro_torch.align` and `model_zoo.resolve_device` (a CUDA device must
+be visible: every default device is ``cuda``) are imported lazily inside
+`DeviceSpec.for_device` and the measured-side helpers.
 """
 from __future__ import annotations
 
@@ -100,11 +101,12 @@ class DeviceSpec:
         return cls.from_json(bundled)
 
     @classmethod
-    def for_device(cls, device="cpu") -> "DeviceSpec":
+    def for_device(cls, device="cuda") -> "DeviceSpec":
         """Spec for a torch device: ``h100_sxm`` for an H100 other than the
         PCIe card, ``gpu_generic`` for any other CUDA card (the report
-        names the card), ``cpu_host`` for the CPU."""
-        card = device_name(device)
+        names the card), ``cpu_host`` for the CPU.  A CUDA device must be
+        visible (no silent CPU fallback)."""
+        card = device_name(_resolve(device))
         if card == "cpu":
             return cls.load("cpu_host")
         return cls.load("h100_sxm" if "H100" in card and "PCIe" not in card
@@ -113,6 +115,12 @@ class DeviceSpec:
     def roof_ops_per_s(self, intensity: float) -> float:
         """Attainable word-ops/s at ``intensity`` (ops/HBM byte)."""
         return min(self.peak_word_ops, max(intensity, 0.0) * self.hbm_bw)
+
+
+def _resolve(device):
+    from repro_torch.models.model_zoo import resolve_device
+
+    return resolve_device(device)
 
 
 def device_name(device) -> str:
@@ -217,7 +225,7 @@ KERNEL_ENTRY = {"cuda_dc": "dc_wave_v1", "cuda_dc_v2": "dc_wave_v2"}
 
 
 def measured_align_cost(backend: str, bucket_cap: int, k: int, batch: int, *,
-                        device="cpu") -> dict:
+                        device="cuda") -> dict:
     """The DC kernels' device time for one call at a dispatch site.
 
     Runs one distances-only `align_batch` on ``device`` at the site's
@@ -236,7 +244,7 @@ def measured_align_cost(backend: str, bucket_cap: int, k: int, batch: int, *,
     from repro_torch.align.api import align_batch
     from repro_torch.core.genasm import GenASMConfig
 
-    dev = torch.device(device)
+    dev = _resolve(device)
     entry = KERNEL_ENTRY.get(backend)
     if dev.type != "cuda" or entry is None:
         return {"error": f"no CUDA kernel to profile: backend {backend!r} "
@@ -321,9 +329,10 @@ class RooflineManager:
     the profiler sees the measured call's kernels only.
     """
 
-    def __init__(self, spec: DeviceSpec | None = None, *, device="cpu",
+    def __init__(self, spec: DeviceSpec | None = None, *, device="cuda",
                  metrics=None, tracer=None, enabled: bool = True,
                  measure: bool = True) -> None:
+        _resolve(device)  # a CUDA device must be visible
         self.device = device
         self.spec = spec or DeviceSpec.for_device(device)
         self.metrics = metrics

@@ -1,6 +1,6 @@
 """Port parity: GenASM traceback and batched alignment against the JAX reference.
 
-Inputs are seeded numpy pairs from `repro.align.inputs.mutated_pair`
+Inputs are seeded numpy pairs from `repro_torch.align.inputs.mutated_pair`
 (substitutions, insertions and deletions); `repro` and `repro_torch` get
 the same arrays and every `AlignResult` field must match exactly.  The
 port's ``cuda_dc``/``cuda_dc_v2`` backends run their batched window loop
@@ -16,12 +16,12 @@ import pytest
 import torch
 
 from repro import align as jalign
-from repro.align import inputs
 from repro.core import bitvector as jbv
 from repro.core import genasm_dc as jdc
 from repro.core import genasm_tb as jtb
 from repro.core.genasm import GenASMConfig as JConfig
 from repro_torch import align as talign
+from repro_torch.align import inputs
 from repro_torch.core import genasm_tb as ttb
 from repro_torch.core.genasm import GenASMConfig
 

@@ -3,7 +3,8 @@
 A static scan of every module of `src/repro_torch/` and of
 `chip_smoke.py`, a fresh interpreter that imports each entry point (the
 service, the edit-distance and SeGraM modules, the obs plane's HTTP
-endpoint and roofline layer, the LM trainer), the service's and the
+endpoint and roofline layer, the LM trainer, the dry run and its report,
+the sharding resolver and the read pipeline), the service's and the
 trainer's refusal to fall back to the CPU, and a scan of the port's
 tests for an in-process import of `repro.shard`.
 """
@@ -38,10 +39,17 @@ LM_MODULES = ["configs/__init__.py", "configs/base.py", "configs/genasm.py",
               "dist/fault.py", "launch/train.py"]
 
 
+# the distribution and dry-run slice's modules
+DIST_MODULES = ["dist/sharding.py", "train/grad_compress.py", "launch/mesh.py",
+                "launch/roofline.py", "launch/dryrun.py", "launch/report.py",
+                "genomics/pipeline.py", "align/inputs.py"]
+
+
 def test_lm_modules_are_scanned():
     scanned = {p.relative_to(ROOT / "src" / "repro_torch").as_posix()
                for p in SOURCES[:-1]}
     assert set(LM_MODULES) <= scanned, set(LM_MODULES) - scanned
+    assert set(DIST_MODULES) <= scanned, set(DIST_MODULES) - scanned
     assert len([p for p in scanned if p.startswith("configs/")]) == 13
 
 
@@ -86,6 +94,14 @@ def test_obs_module_imports_no_jax_or_repro(module):
 
 def test_lm_trainer_imports_no_jax_or_repro():
     _imports_nothing_forbidden("repro_torch.launch.train")
+
+
+@pytest.mark.parametrize("module", ["repro_torch.launch.dryrun",
+                                    "repro_torch.launch.report",
+                                    "repro_torch.dist.sharding",
+                                    "repro_torch.genomics.pipeline"])
+def test_dist_entry_points_import_no_jax_or_repro(module):
+    _imports_nothing_forbidden(module)
 
 
 def test_lm_trainer_default_device_raises_without_cuda(tmp_path):

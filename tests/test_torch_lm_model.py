@@ -312,21 +312,47 @@ def test_init_draws_from_the_generator():
     assert not a.blocks[0].slot0.attn.bq.any()
 
 
-def test_unported_families_raise():
-    """What the port does not carry yet raises: a mesh or sequence
-    parallelism (dist/sharding.py, ROADMAP Queue 1), in the decoder and
-    in the MoE dispatch."""
+def test_unported_families_raise(tmp_path):
+    """A mesh and sequence parallelism, which raised until
+    `repro_torch.dist.sharding` was ported, now run: ``sp`` without a mesh
+    is a no-op (as the reference's ``constrain_activations``), and on a
+    1x1 ("data", "model") mesh of a one-rank gloo world the decoder's
+    forward and the MoE dispatch on DTensor parameters give the plain
+    results (tests/test_torch_dist.py holds a 2x2 world)."""
+    import torch.distributed as dist
+
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_debug_mesh
+
     cfg = reduced(get_config("yi-6b"))
     model = tzoo.init(cfg, device="cpu")
-    tokens = torch.zeros(1, 8, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="sharding"):
-        ttr.forward(cfg, model, tokens, mesh=object())
-    with pytest.raises(NotImplementedError, match="sharding"):
-        ttr.forward(cfg, model, tokens, sp=True)
-    cfg = reduced(get_config("mixtral-8x7b"))
-    moe = tzoo.init(cfg, device="cpu").blocks[0].slot0.moe
-    with pytest.raises(NotImplementedError, match="sharding"):
-        tmoe.moe_apply(cfg, moe, torch.zeros(1, 4, cfg.d_model), mesh=object())
+    tokens = torch.arange(16, dtype=torch.int32).reshape(2, 8)
+    with torch.no_grad():
+        want, _ = ttr.forward(cfg, model, tokens)
+        got, _ = ttr.forward(cfg, model, tokens, sp=True)
+    assert torch.equal(got, want)
+    mcfg = reduced(get_config("mixtral-8x7b"))
+    moe = tzoo.init(mcfg, device="cpu").blocks[0].slot0.moe
+    x = torch.randn(2, 4, mcfg.d_model, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want_moe, want_aux = tmoe.moe_apply(mcfg, moe, x)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_debug_mesh((1, 1), device_type="cpu")
+        shd.shard_put(model, mesh)
+        shd.shard_put(moe, mesh)
+        with torch.no_grad():
+            got, _ = ttr.forward(cfg, model, shd.shard_put(
+                {"t": tokens}, mesh, {"t": ("data",)})["t"], mesh=mesh, sp=True)
+            with shd.sharded_ops(mesh):
+                got_moe, got_aux = tmoe.moe_apply(
+                    mcfg, moe, shd.wrap_replicated(x, mesh), mesh=mesh)
+        torch.testing.assert_close(got.full_tensor(), want, rtol=2e-2, atol=2e-2)
+        torch.testing.assert_close(got_moe.full_tensor(), want_moe)
+        assert float(got_aux.full_tensor()) == pytest.approx(float(want_aux))
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)

@@ -200,6 +200,8 @@ def test_bundled_specs_match_reference_and_h100_is_sourced():
 ])
 def test_spec_for_device(monkeypatch, device, card, spec):
     monkeypatch.setattr(torch.cuda, "get_device_name", lambda d=None: card)
+    if card is not None:  # a CUDA device must be visible
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     assert obs.DeviceSpec.for_device(device).name == spec
     rf = obs.RooflineManager(device=device, measure=False)
     assert rf.spec.name == spec
@@ -217,7 +219,7 @@ def test_roofline_report_matches_reference(port, ref):
     got_m, want_m = Metrics(), RefMetrics()
     got_tr, want_tr = obs.Tracer(), ref_obs.Tracer()
     got = obs.RooflineManager(spec=obs.DeviceSpec.load(spec), metrics=got_m,
-                              tracer=got_tr, measure=False)
+                              tracer=got_tr, measure=False, device="cpu")
     want = ref_obs.RooflineManager(spec=ref_obs.DeviceSpec.load(spec),
                                    metrics=want_m, tracer=want_tr,
                                    measure=False)
@@ -249,7 +251,7 @@ def test_roofline_report_matches_reference(port, ref):
 
 def test_roofline_disabled_and_unmodelled_backends_record_nothing():
     rf = obs.RooflineManager(spec=obs.DeviceSpec.load("cpu_host"),
-                             enabled=False, measure=False)
+                             enabled=False, measure=False, device="cpu")
     assert rf.record_flush("torch", 160, 24, 16, align_s=0.01) is None
     assert rf.report()["kernels"] == []
     rf.enabled = True
@@ -259,7 +261,8 @@ def test_roofline_disabled_and_unmodelled_backends_record_nothing():
 
 @pytest.mark.parametrize("backend", ["torch", "cuda_dc", "cuda_dc_v2"])
 def test_measured_side_has_no_kernel_on_the_cpu(backend):
-    assert "no CUDA kernel" in measured_align_cost(backend, 64, 8, 8)["error"]
+    assert "no CUDA kernel" in measured_align_cost(backend, 64, 8, 8,
+                                                   device="cpu")["error"]
     rf = obs.RooflineManager(device="cpu")
     rf.record_flush(backend, 64, 8, 8, align_s=0.005)
     (row,) = rf.report(measure=True)["kernels"]
@@ -272,7 +275,7 @@ def test_report_folds_a_measurement_into_kernel_columns():
     """``pct_of_roof_kernel`` is analytic ops over the kernels' measured
     device seconds, against the roof at the site's intensity."""
     rf = obs.RooflineManager(spec=obs.DeviceSpec.load("h100_sxm"),
-                             measure=False)
+                             measure=False, device="cpu")
     rf.record_flush("cuda_dc_v2", 160, 24, 256, align_s=0.7)
     site = rf.site("cuda_dc_v2", 160, 24, 256)
     site.measured = {"measured_ops": None, "measured_bytes": None,
@@ -303,7 +306,7 @@ def _traced():
 
 def test_obs_server_endpoints():
     metrics, tr = _traced()
-    rf = obs.RooflineManager(spec=obs.DeviceSpec.load("cpu_host"))
+    rf = obs.RooflineManager(spec=obs.DeviceSpec.load("cpu_host"), device="cpu")
     rf.record_flush("cuda_dc", 160, 24, 16, align_s=0.02)
     with obs.ObsServer(metrics=metrics, tracer=tr, roofline=rf,
                        port=0) as srv:
@@ -369,7 +372,7 @@ def test_engine_roofline_matches_reference_engine(golden_service):
     spec = "cpu_host"
     tr = obs.Tracer()
     rf = obs.RooflineManager(spec=obs.DeviceSpec.load(spec), tracer=tr,
-                             measure=False)
+                             measure=False, device="cpu")
     with ServeEngine(svc.index, EngineConfig(align_backend="torch", **cfg),
                      tracer=tr, roofline=rf) as eng:
         got_res = eng.map_all(svc.reads)
@@ -417,7 +420,7 @@ def test_sharded_engine_records_roofline(golden_service, mode, stages):
     svc = golden_service
     tr, m = obs.Tracer(), Metrics()
     rf = obs.RooflineManager(spec=obs.DeviceSpec.load("cpu_host"), tracer=tr,
-                             metrics=m, measure=False)
+                             metrics=m, measure=False, device="cpu")
     cfg = EngineConfig(buckets=(128,), max_batch=4, minimizer_w=8,
                        minimizer_k=12, filter_k=svc.config.filter_k,
                        align_backend="cuda_dc_v2", num_shards=2, **mode)
@@ -445,7 +448,7 @@ def test_engine_holds_the_device_lock_around_a_flush(golden_service):
     svc = golden_service
     tr = obs.Tracer()
     rf = obs.RooflineManager(spec=obs.DeviceSpec.load("cpu_host"),
-                             measure=False)
+                             measure=False, device="cpu")
     cfg = EngineConfig(buckets=(128,), max_batch=1, minimizer_w=8,
                        minimizer_k=12, filter_k=svc.config.filter_k,
                        align_backend="torch")
@@ -566,7 +569,7 @@ def test_serve_takes_the_callers_tracer_roofline_and_metrics(golden_service):
     chip_smoke.py's own HTTP endpoint reads while the run goes on)."""
     tr, m = obs.Tracer(), Metrics()
     rf = obs.RooflineManager(spec=obs.DeviceSpec.load("cpu_host"), tracer=tr,
-                             measure=False)
+                             measure=False, device="cpu")
     args = sg.parse_args(GOLDEN_ARGS + ["--device", "cpu", "--align-backend",
                                         "cuda_dc"])
     seen = []
