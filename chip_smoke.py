@@ -22,7 +22,9 @@ and sequence-to-graph read-mapping deployments end to end through
                  (R off and on) and the graph align loop's B=256, N=64,
                  m_bits=64, k=24; Myers at the edit-distance sites (B=1,024,
                  n=1,192, m_bits=1,024, semiglobal and global; B=256,
-                 n=5,192, m_bits=5,056) and once at L = 100,000 (B=8)
+                 n=5,192, m_bits=5,056) and once at L = 100,000 (B=8:
+                 timed here, held against its plain version in the LM
+                 lane)
   4. golden    — tests/data/serve_golden.paf byte for byte with cuda_dc and
                  cuda_dc_v2, offline and online
   5. serve     — a 4,641,652 bp reference (the length of E. coli K-12
@@ -99,7 +101,9 @@ and sequence-to-graph read-mapping deployments end to end through
                  (1,889.6 M parameters) serving 4 prompts of 2,048 tokens:
                  prefill, 32 greedy tokens at max_len 2,080 twice (equal),
                  prefill's last logits against step-by-step decode, the
-                 int8 KV cache teacher-forced on the same tokens; and the
+                 int8 KV cache teacher-forced on the same tokens (its
+                 quantizer on the first cache's rows bit for bit against
+                 the CPU's); and the
                  trainer's entry point (`python -m repro_torch.launch.train
                  --arch internlm2-1.8b --steps 6 --seq 512 --batch 4`) in a
                  subprocess, with checkpoints, then again to resume
@@ -127,8 +131,9 @@ and sequence-to-graph read-mapping deployments end to end through
                  `genomics.pipeline` (ReadBatches -> Prefetcher on cuda:0 ->
                  map_stream on cuda_dc_v2, 256 a batch), each batch equal to
                  `map_batch` called directly and the rows equal to the serve
-                 phase's PAF rows, reads/s beside the direct loop's; then, in
-                 a child process with a one-rank NCCL world, internlm2-1.8b
+                 phase's PAF rows, reads/s beside the direct loop's; then
+                 (in the LM lane, after lm_zoo) in a child process with a
+                 one-rank NCCL world, internlm2-1.8b
                  at full size trained 2 steps (microbatches 2, 4 x 512) on a
                  1x1 ("data", "model") mesh with `dist.sharding` DTensor
                  parameters, optimizer state and batches, against the
@@ -138,13 +143,26 @@ and sequence-to-graph read-mapping deployments end to end through
                  internlm2's whole fp32 gradient (the first 2^20 values bit
                  for bit against the CPU; CUDA-event times beside the bytes
                  bound) and the pod mean over a one-rank pod group against
-                 its formula; beside the child (after the read pipeline,
-                 whose times it would share the host with), `python -m
-                 repro_torch.launch.dryrun --all` (no cell may record an
-                 error; cells that fit 80 GB, per mesh)
+                 its formula; then the sharded dry run, started after the
+                 kernels phase and run beside the phases that follow:
+                 `python -m repro_torch.launch.dryrun --all --multi-pod M`
+                 for both meshes, one process each on one thread (rank 0
+                 of a fake 256- or 512-rank group on this host's CPU); 66
+                 cells, each with its sharded step and no error,
+                 collectives in every train cell, cross-pod bytes in every
+                 2x16x16 train cell and in no 16x16 cell; cells that fit
+                 80 GB per mesh, by the spec count and by rank 0's
+                 measured peak (of the cells whose step ran at their
+                 length)
 
-Each phase prints one JSON line.  The kernels line precedes the card's
-nvidia-smi line, and the last line is ``{"ok": true, "device": {...}}``.
+The Myers check at L = 100 kbp, phases 13, 14 and the dist child run in
+the LM lane, a process of its own (`--lm-child`) started after serve, beside phases 7-12 and the read
+pipeline: they share the card and the host with them.  Each phase prints
+one JSON line, its "t" the seconds since the script started, on one
+clock in every process (a phase's seconds are the difference to the line
+before it in its lane); the LM lane's lines are relayed when it ends.
+The kernels line precedes the card's nvidia-smi line, and the last line
+is ``{"ok": true, "device": {...}}``.
 Any failed check raises: the script then exits non-zero without that
 line.  It imports nothing of JAX or of the JAX package `repro`.
 """
@@ -152,6 +170,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -242,8 +261,8 @@ SWEEPS = {
     # modes, ragged batches (several pairs a warp up to 16 words), a last
     # lane with fewer words than the others, the two widths on either side
     # of one warp a pair and a pipeline of warps, the first design's widest
-    # pattern (26 warps a pair) and this one's (32 warps, 1,024 threads),
-    # then L = 100 kbp
+    # pattern (26 warps a pair) and this one's (32 warps, 1,024 threads);
+    # then L = 100 kbp, in the LM lane (myers_long_check)
     "myers_distance_batch": [
         *(dict(b=37, n=150, m_bits=m_bits, mode=mode, short=True)
           for m_bits in (32, 64, 96, 128) for mode in ("global", "semiglobal")),
@@ -253,7 +272,6 @@ SWEEPS = {
         dict(b=3, n=64, m_bits=10272, mode="global", short=True),
         dict(b=3, n=400, m_bits=265_632, mode="global", short=True),
         dict(b=3, n=400, m_bits=327_680, mode="semiglobal", short=True),
-        MYERS_LONG,
     ],
 }
 ED_SETTINGS = ((1000, 0.95, 1024), (1000, 0.80, 1024), (5000, 0.95, 256))
@@ -309,15 +327,32 @@ S2S_TRAIN_ARGS = ["--arch", "seamless-m4t-medium", "--steps", "4", "--seq",
 # tolerances, tests/test_torch_dist.py), the reduced mixtral the same way
 # with fp32 activations, the int8 compression on internlm2's whole fp32
 # gradient (card against CPU on its first values) and the pod mean over a
-# one-rank pod group; the dry run of every cell, beside the child
+# one-rank pod group; the sharded dry run of every cell (DryRun)
 DIST_READS, DIST_BATCH = 2048, 256
+# the sharded dry run: one process per mesh (a fake group's world size is
+# fixed for its life), each on one CPU thread
+DRYRUN_MESHES = ("single", "multi")
+# the LM lane (lm, lm_zoo and the dist child in a process of its own,
+# beside the genomics phases after serve) and the dry run must end this
+# many seconds after the script started
+LANE_DEADLINE_S = 1100.0
 DIST_TRAIN = dict(steps=2, microbatches=2, batch=4, seq=512)
 DIST_LOSS_TOL, DIST_REL_TOL = 1e-2, 3e-2
 DIST_BITWISE, DIST_PSUM = 1 << 20, 1 << 26
 
 
+# each line's "t": seconds since the script started, on the host's
+# monotonic clock, which the child processes share (they inherit T0)
+T0 = float(os.environ.setdefault("CHIP_SMOKE_T0", repr(time.monotonic())))
+
+
+def since_start() -> float:
+    return time.monotonic() - T0
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields, "t": since_start()}),
+          flush=True)
 
 
 def check(ok: bool, what: str) -> None:
@@ -595,6 +630,25 @@ def kernel_phase(torch, np, ops, dev) -> dict:
              entries=KERNEL_ENTRIES[kern.name], sites=geometry)
         emit("kernels_vs_plain", **rows[kern.name])
     return rows
+
+
+def myers_long_check(torch, np, ops, dev) -> dict:
+    """The Myers kernel against its plain version at L = 100 kbp
+    (MYERS_LONG), the last shape of its sweep, on the inputs it would have
+    there.  The plain version takes ~100,000 host-bound steps, so this runs
+    in the LM lane, beside the genomics phases; the kernels line takes its
+    result from the lane's line."""
+    kern = next(k for k in ops.KERNELS if k.name == "myers_distance_batch")
+    i = len(SITES[kern.name]) + len(SWEEPS[kern.name])
+    args, kw = kern.make_inputs(np.random.default_rng(100 + i), dev,
+                                **MYERS_LONG)
+    mism, err = compare(torch, kern.wrapper(*args, **kw),
+                        kern.plain(*args, **kw), kern.name)
+    torch.cuda.synchronize()
+    line = {**MYERS_LONG, "mismatches": mism, "max_abs_err": err}
+    emit("kernels_vs_plain_long", name=kern.name, **line)
+    check(mism == 0, f"{kern.name} {MYERS_LONG}: {mism} mismatches")
+    return line
 
 
 # ------------------------------------------------------------- serving ----
@@ -1789,10 +1843,23 @@ def lm_serve_phase(torch, np, dev) -> int:
     torch.cuda.synchronize(dev)
     greedy_s = time.perf_counter() - t
     transformer.KV_INT8 = True
+    quant, first = transformer._quant, []
+
+    def recorded(x):  # the first cache's K rows and their int8 form
+        q, sc = quant(x)
+        if not first:
+            first.append((x.detach().clone(), q.clone(), sc.clone()))
+        return q, sc
+
+    transformer._quant = recorded
     try:  # teacher-forced on the bf16 run's tokens, as tests/test_serving.py
         tokens8, logits8, _, _ = greedy(n8, forced=tokens)
     finally:
         transformer.KV_INT8 = False
+        transformer._quant = quant
+    x, q_card, s_card = (t.cpu() for t in first[0])
+    q_cpu, s_cpu = quant(x)
+    quant_bitwise = bool(torch.equal(q_card, q_cpu) and torch.equal(s_card, s_cpu))
     lo, lo8 = logits[:, :n8].cpu().numpy(), logits8.cpu().numpy()
     compared8 = lm_near_tie(np, lo, LM_TOL)
     same8 = lm_same_until(tokens8.cpu().numpy(), tokens.cpu().numpy(), compared8)
@@ -1813,7 +1880,8 @@ def lm_serve_phase(torch, np, dev) -> int:
          runs_identical=bool(torch.equal(tokens, again)),
          int8_steps=n8, int8_max_rel_err=rel8, int8_compared_steps=compared8,
          int8_argmax_equal=int((tokens8[:, 1:] == tokens[:, 1: 1 + n8]).sum()),
-         int8_argmax_of=b * n8,
+         int8_argmax_of=b * n8, int8_quant_values=x.numel(),
+         int8_quant_bitwise=quant_bitwise,
          max_memory_allocated=torch.cuda.max_memory_allocated(dev),
          card=card_line())
     # at 24 layers a logit's error is set by the hidden state's, not by the
@@ -1824,6 +1892,7 @@ def lm_serve_phase(torch, np, dev) -> int:
     check(torch.equal(tokens, again), "lm_serve: two greedy runs differ")
     check(rel8 < 0.05, "lm_serve: int8 KV logits off by >= 5% of the largest")
     check(same8, "lm_serve: int8 KV argmax differs before a near-tie")
+    check(quant_bitwise, "lm_serve: the int8 KV quantizer differs card to CPU")
     return n_params
 
 
@@ -2781,61 +2850,193 @@ def dist_child() -> int:
     return 0
 
 
-def dist_dryrun_check(proc, results: Path, started: float) -> None:
-    """The dry run's records: no cell in error, 66 cells, the cells that fit
-    80 GB per mesh; its seconds run from ``started`` (wall clock) to its
-    last write of ``results``."""
-    out, err = proc.communicate(timeout=600)
-    seconds = results.stat().st_mtime - started
-    (OUT / "dist_dryrun.log").write_text(out + err)
-    check(proc.returncode == 0, f"dry run exited {proc.returncode}: {err[-3000:]}")
-    res = json.loads(results.read_text())
-    errors = sorted(k for k, v in res.items() if "error" in v)
-    fits = {}
-    for v in res.values():
-        if "memory" in v:
-            fits.setdefault(v["mesh"], [0, 0])
-            fits[v["mesh"]][0] += v["memory"]["fits"]
-            fits[v["mesh"]][1] += 1
-    emit("dist_dryrun", cells=len(res), errors=errors, seconds=seconds,
-         fits_80gb={m: f"{a} of {b}" for m, (a, b) in fits.items()},
-         lower_s_max=max(v.get("lower_s", 0.0) for v in res.values()),
-         card=card_line())
+class DryRun:
+    """The sharded dry run (`repro_torch.launch.dryrun --all`) of every cell
+    on this host's CPU: one process per mesh, each rank 0 of a fake 256- or
+    512-rank group (its world size is fixed for its life), on one thread,
+    beside the phases that follow (the card's torch has other DTensor rules
+    than the CPU tests', so every cell runs here too)."""
+
+    def __init__(self) -> None:
+        self.dir = OUT / "dryrun"
+        self.dir.mkdir(parents=True, exist_ok=True)
+        for old in self.dir.glob("*"):
+            old.unlink()
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src"),
+               "OMP_NUM_THREADS": "1"}
+        self.started, self.started_wall = since_start(), time.time()
+        self.procs = {}
+        for mesh in DRYRUN_MESHES:
+            with open(self.dir / f"{mesh}.log", "w") as log:
+                self.procs[mesh] = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun",
+                     "--all", "--multi-pod", mesh,
+                     "--results", str(self.results(mesh))],
+                    cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+
+    def results(self, mesh: str) -> Path:
+        return self.dir / f"{mesh}.json"
+
+    def wait(self) -> tuple[dict, dict, float]:
+        """Wait for both processes (until LANE_DEADLINE_S): their exit codes
+        (None: still running), the seconds each ran to its last record (its
+        results file's last write), the seconds waited."""
+        t = since_start()
+        codes, seconds = {}, {}
+        for mesh, proc in self.procs.items():
+            try:
+                codes[mesh] = proc.wait(max(1.0, LANE_DEADLINE_S - since_start()))
+            except subprocess.TimeoutExpired:
+                codes[mesh] = None
+            path = self.results(mesh)
+            seconds[mesh] = (path.stat().st_mtime - self.started_wall
+                             if path.exists() else None)
+        return codes, seconds, since_start() - t
+
+    def stop(self) -> None:
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def dist_dryrun_check(dryrun: DryRun) -> None:
+    """The dry run's records: 66 cells, none in error, each with a sharded
+    step and its collectives; train cells with collectives, every 2x16x16
+    train cell with cross-pod bytes and no 16x16 cell with any; the cells
+    that fit 80 GB per mesh by the spec count and by rank 0's measured
+    peak (of the cells whose step ran at their length), and a few cells'
+    numbers."""
+    codes, seconds, waited = dryrun.wait()
+    failed = {m: c for m, c in codes.items() if c != 0}
+    res = {}
+    for mesh in DRYRUN_MESHES:
+        path = dryrun.results(mesh)
+        if path.exists():
+            res.update(json.loads(path.read_text()))
+    errors = sorted(k for k, v in res.items()
+                    if "error" in v or (v.get("sharded") or {}).get("error")
+                    is not None or "sharded" not in v)
+    fits, cells = {}, {}
+    for key, v in sorted(res.items()):
+        if key in errors:
+            continue
+        f = fits.setdefault(v["mesh"], [0, 0, 0, 0])
+        mem, coll = v["memory"], v["collectives"]
+        f[0] += mem["fits"]
+        f[2] += 1
+        if mem["measured"]["fits_measured"] is not None:  # not cut to LOOP_SEQ
+            f[1] += mem["measured"]["fits_measured"]
+            f[3] += 1
+        cells[key] = dict(
+            sharded_s=v["sharded"]["lower_s"], n_ops=coll["n_ops"],
+            link_gb=coll["link_bytes"] / 1e9,
+            cross_pod_gb=coll["cross_pod_bytes"] / 1e9,
+            spec_gb=mem["per_device_total"] / 1e9,
+            measured_gb=mem["measured"]["peak_bytes_full_depth_est"] / 1e9,
+            seq_cut=coll.get("lower_seq"))
+    train = {k: v for k, v in res.items() if v.get("shape") == "train_4k"}
+    no_ops = sorted(k for k, v in train.items() if k not in errors
+                    and v["collectives"]["n_ops"] <= 0)
+    no_cross = sorted(k for k, v in train.items() if k not in errors
+                      and v["mesh"] == "2x16x16"
+                      and v["collectives"]["cross_pod_bytes"] <= 0)
+    crossing = sorted(k for k, v in res.items() if k not in errors
+                      and v["mesh"] == "16x16"
+                      and v["collectives"]["cross_pod_bytes"] != 0)
+    (OUT / "dist_dryrun.json").write_text(json.dumps(res, indent=1))
+    emit("dist_dryrun", cells=len(res), errors=errors, failed_processes=failed,
+         seconds=seconds, started_t=dryrun.started, waited_s=waited,
+         processes=len(dryrun.procs), host_cpus=os.cpu_count(),
+         fits_80gb={m: f"{a} of {n}" for m, (a, _, n, _) in fits.items()},
+         fits_80gb_measured={m: f"{b} of {k}"
+                             for m, (_, b, _, k) in fits.items()},
+         train_without_collectives=no_ops, multi_pod_train_without_cross=no_cross,
+         single_pod_with_cross=crossing, per_cell=cells, card=card_line())
+    check(not failed, f"dry-run processes failed: {failed}")
     check(not errors, f"dry-run cells recorded errors: {errors}")
     check(len(res) == 66, f"dry run: {len(res)} cells, not 66")
+    check(not no_ops, f"dry run: train cells without collectives: {no_ops}")
+    check(not no_cross, f"dry run: 2x16x16 train cells without cross-pod "
+                        f"bytes: {no_cross}")
+    check(not crossing, f"dry run: 16x16 cells with cross-pod bytes: {crossing}")
 
 
-def dist_phase(torch, np, ops, sg) -> int:
+def lm_child() -> int:
+    """``chip_smoke.py --lm-child``: the LM lane in a process of its own,
+    beside the genomics phases after serve: the Myers kernel's check at
+    L = 100 kbp, lm, lm_zoo, then `dist_child` (after lm_zoo, so that
+    their card memory never adds up)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", 0)
+    myers_long_check(torch, np, ops, dev)
+    lm_phase(torch, np, dev)
+    lm_zoo_phase(torch, np, dev)
+    torch.cuda.empty_cache()
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
+                           "--dist-child"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    print(proc.stdout, end="", flush=True)
+    (OUT / "dist_child.log").write_text(proc.stdout + proc.stderr)
+    check(proc.returncode == 0,
+          f"dist child exited {proc.returncode}: {proc.stderr[-3000:]}")
+    return 0
+
+
+class LmLane:
+    """`lm_child` started now; its lines go to build/chip_smoke/lm_lane.log
+    and are relayed when it is collected (each carries its "t")."""
+
+    def __init__(self) -> None:
+        self.log = OUT / "lm_lane.log"
+        self.err = OUT / "lm_lane.err"
+        self.started = since_start()
+        with open(self.log, "w") as out, open(self.err, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"), "--lm-child"],
+                cwd=ROOT, stdout=out, stderr=err)
+
+    def collect(self) -> float:
+        """Wait for the lane (until LANE_DEADLINE_S), relay its lines and
+        check it; returns the seconds waited.  ``lines``: its phase lines."""
+        t = since_start()
+        try:
+            code = self.proc.wait(max(1.0, LANE_DEADLINE_S - since_start()))
+        except subprocess.TimeoutExpired:
+            code = None
+        waited = since_start() - t
+        text = self.log.read_text()
+        print(text, end="", flush=True)
+        check(code == 0, f"LM lane exited {code}: "
+                         f"{self.err.read_text()[-3000:]}")
+        self.lines = {d["phase"]: d for d in map(json.loads, (
+            ln for ln in text.splitlines() if ln.startswith('{"phase"')))}
+        return waited
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+
+
+def dist_phase(torch, ops, sg, lane: LmLane, dryrun: DryRun) -> int:
     """The distribution and dry-run plane on the card: the read pipeline
-    alone (its reads/s are host-bound), then `dist_child` (a child process
-    of its own) with the dry run beside it in a subprocess; returns the
-    read pipeline's v2 launches."""
-    import os
-
+    (its reads/s are host-bound), then the LM lane, which ran `dist_child`
+    after lm_zoo, and the sharded dry run, both collected; returns the read
+    pipeline's v2 launches."""
     t_phase = time.perf_counter()
     launches = dist_pipeline(torch, ops, sg)
-    results = OUT / "dryrun_results_torch.json"
-    results.unlink(missing_ok=True)
-    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "1"}
-    t_dry = time.time()
-    dry = subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun",
-                            "--all", "--results", str(results)], cwd=ROOT,
-                           env=env, stdout=subprocess.PIPE,
-                           stderr=subprocess.PIPE, text=True)
-    try:
-        proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"),
-                               "--dist-child"], cwd=ROOT, capture_output=True,
-                              text=True, timeout=600)
-        print(proc.stdout, end="", flush=True)
-        (OUT / "dist_child.log").write_text(proc.stdout + proc.stderr)
-        check(proc.returncode == 0,
-              f"dist child exited {proc.returncode}: {proc.stderr[-3000:]}")
-        dist_dryrun_check(dry, results, t_dry)
-    finally:
-        if dry.poll() is None:
-            dry.kill()
-            dry.wait()
-    emit("dist_done", seconds=time.perf_counter() - t_phase, card=card_line())
+    lane_waited = lane.collect()
+    dist_dryrun_check(dryrun)
+    emit("dist_done", seconds=time.perf_counter() - t_phase,
+         lm_lane_started_t=lane.started, lm_lane_waited_s=lane_waited,
+         max_memory_reserved=torch.cuda.max_memory_reserved(),
+         card=card_line())
     return launches
 
 
@@ -2879,30 +3080,45 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     rows = kernel_phase(torch, np, ops, dev)
-    golden_phase(sg)
-    launches, one_shard_rps = serve_phase(torch, ops, sg)
-    obs_phase(torch, sg)
-    golden_graph_phase(sg)
-    graph = graph_serve_phase(torch, ops, sg)
-    launches["bitalign_dc_batch"] = graph["bitalign_dc_batch"]
-    sharded = shard_phase(torch, np, ops, sg, dev, graph, one_shard_rps)
-    for name in ("window_dc_batch", "window_dc_batch_v2"):
-        rows[name]["launches_by_site"] = {
-            "serve": launches[name],
-            **{site: c[name] for site, c in sharded.items() if c.get(name)}}
-    rows["bitalign_dc_batch"]["launches_by_site"] = {
-        **graph["bitalign_launches_by_site"],
-        "shard_golden": sharded["shard_golden"]["bitalign_dc_batch"],
-        "shard_filter": sharded["shard2_graph"]["bitalign_filter"],
-        "shard_align": sharded["shard2_graph"]["bitalign_align"]}
-    del graph  # the graph deployment's device memory
-    launches["myers_distance_batch"] = edit_distance_phase(torch, np, ops, dev)
-    prealign_filter_phase(torch, np, dev)
-    segram_phase(torch, np, dev)
-    lm_phase(torch, np, dev)
-    lm_zoo_phase(torch, np, dev)
-    rows["window_dc_batch_v2"]["launches_by_site"]["dist_stream"] = dist_phase(
-        torch, np, ops, sg)
+    # from here on the dry run runs on the CPU beside every phase to dist,
+    # and from after serve the LM lane beside the genomics phases
+    dryrun, lane = DryRun(), None
+    try:
+        golden_phase(sg)
+        launches, one_shard_rps = serve_phase(torch, ops, sg)
+        torch.cuda.empty_cache()  # the LM lane needs the card's memory
+        lane = LmLane()
+        obs_phase(torch, sg)
+        golden_graph_phase(sg)
+        graph = graph_serve_phase(torch, ops, sg)
+        launches["bitalign_dc_batch"] = graph["bitalign_dc_batch"]
+        sharded = shard_phase(torch, np, ops, sg, dev, graph, one_shard_rps)
+        for name in ("window_dc_batch", "window_dc_batch_v2"):
+            rows[name]["launches_by_site"] = {
+                "serve": launches[name],
+                **{site: c[name] for site, c in sharded.items() if c.get(name)}}
+        rows["bitalign_dc_batch"]["launches_by_site"] = {
+            **graph["bitalign_launches_by_site"],
+            "shard_golden": sharded["shard_golden"]["bitalign_dc_batch"],
+            "shard_filter": sharded["shard2_graph"]["bitalign_filter"],
+            "shard_align": sharded["shard2_graph"]["bitalign_align"]}
+        del graph  # the graph deployment's device memory
+        launches["myers_distance_batch"] = edit_distance_phase(torch, np, ops,
+                                                               dev)
+        prealign_filter_phase(torch, np, dev)
+        segram_phase(torch, np, dev)
+        rows["window_dc_batch_v2"]["launches_by_site"]["dist_stream"] = \
+            dist_phase(torch, ops, sg, lane, dryrun)
+        long = lane.lines["kernels_vs_plain_long"]
+        row = rows["myers_distance_batch"]
+        row["mismatches"] += long["mismatches"]
+        row["max_abs_err"] = max(row["max_abs_err"], long["max_abs_err"])
+        row["long"].update(mismatches=long["mismatches"],
+                           max_abs_err=long["max_abs_err"])
+    finally:
+        dryrun.stop()
+        if lane is not None:
+            lane.stop()
     for name, n in launches.items():
         rows[name]["launches"] = n
     emit("done", seconds=time.perf_counter() - t_start)
@@ -2921,6 +3137,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    CHILDREN = {"--obs-child": obs_child, "--dist-child": dist_child}
+    CHILDREN = {"--obs-child": obs_child, "--dist-child": dist_child,
+                "--lm-child": lm_child}
     sys.exit(CHILDREN[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in CHILDREN
              else main())

@@ -57,8 +57,38 @@ silently:
   D]``), the dispatch and the expert outputs are constrained over
   "model", and the combine runs on the replicated expert outputs —
   left to DTensor, the ranks' collectives diverged and the step hung;
+  where the tokens come in several dispatch chunks, all of them are
+  gathered first (`moe.moe_apply`);
 * the microbatches (`train/loop.py`): the global rows are cut first and
-  each microbatch is distributed over the data axes on its own.
+  each microbatch is distributed over the data axes on its own;
+* the decode state (``shard_state``; `models/transformer._attn_decode`,
+  `attention.decode_attention`): each rank reads and writes its own
+  shard of the KV cache in place, the new token's q, k and v
+  redistributed to the cache's placements first; the Mamba, RWKV-6 and
+  shift states are written back through ``write_state``, which
+  redistributes the new value to the state's placements (an all-gather
+  over "model", where the state is replicated and the mixer is
+  tensor-parallel) — DTensor's in-place rules on views of a sharded
+  state differ between PyTorch releases;
+* the WKV recurrence (`models/rwkv6._wkv_on_shards`): each rank runs
+  its own batch rows and heads as local tensors, as the attention core
+  does — every time step's einsums would flatten the sharded batch and
+  head dims together;
+* Mamba's causal conv and selective scan (`models/mamba._conv_on_shards`,
+  `_ssm_on_shards`): each rank runs its own batch rows and channels as
+  local tensors, B and C gathered over "model" — PyTorch 2.11's DTensor
+  fails on the conv's pad;
+* sequence parallelism (``gather_sequence``, ``as_residual``): the
+  normed input of each mixer and MLP, and the final hidden states
+  before the chunked loss (`models/model_zoo.loss_fn`), are gathered
+  over the sequence first, and each mixer's and MLP's output is
+  scattered back to the residual stream's placements before the add,
+  as Megatron's sequence parallelism does — PyTorch 2.11's DTensor
+  refuses the matmuls' flatten of a sharded sequence dim, forward and
+  backward.
+
+Each core run on local tensors takes its inputs through ``local_shard``,
+which hands the gradient back contiguous.
 """
 from __future__ import annotations
 
@@ -239,6 +269,36 @@ def state_specs(state, mesh):
     return walk(state)
 
 
+def shard_state(state, mesh):
+    """A decode-state tree (`model_zoo.decode_state_init`) distributed over
+    ``mesh`` with ``state_specs``: KV caches and their int8 scales over the
+    data axes and "model", SSM, conv, WKV and shift states over the data
+    axes, ``pos`` replicated.  Returns a tree of DTensors."""
+    specs = state_specs(state, mesh)
+
+    def walk(tree, spec):
+        return {k: walk(v, spec[k]) if isinstance(v, Mapping)
+                else _put(v, mesh, spec[k]) for k, v in tree.items()}
+
+    return walk(state, specs)
+
+
+def row_placements(placements) -> tuple:
+    """The placements of one block's rows of a state leaf stacked over
+    blocks (``leaf[blk]``; the block dim is never sharded)."""
+    from torch.distributed.tensor import Shard
+
+    return tuple(Shard(p.dim - 1) if p.is_shard() else p for p in placements)
+
+
+def write_state(dst, value) -> None:
+    """``dst.copy_(value)`` for ``dst`` a DTensor (rows of a placed decode
+    state): ``value`` is redistributed to ``dst``'s placements and copied
+    into this rank's shard, so the state keeps its placements."""
+    local = value.redistribute(dst.device_mesh, dst.placements).to_local()
+    dst.to_local().copy_(local)
+
+
 # ------------------------------------------------------------ placements ---
 
 # open sharded_ops contexts: DTensor's implicit-replication switch is
@@ -274,6 +334,66 @@ def replicated_local(x):
 
     return x.redistribute(x.device_mesh,
                           (Replicate(),) * x.device_mesh.ndim).to_local()
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity whose backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
+def work_placements(x, dims=(0, 2)) -> tuple:
+    """The placements a core run on local shards keeps for DTensor ``x``:
+    each mesh dim keeps a shard of one of ``dims`` (the batch rows and the
+    heads or channels, which the core splits in whole groups) and
+    replicates otherwise."""
+    from torch.distributed.tensor import Replicate
+
+    return tuple(p if any(p.is_shard(d) for d in dims) else Replicate()
+                 for p in x.placements)
+
+
+def local_shard(x, placements, work=None):
+    """A DTensor redistributed to ``placements``, as this rank's plain
+    local tensor, differentiable; its gradient reaches ``x`` contiguous.
+    A core run on local tensors can hand back a permuted gradient (an
+    einsum's backward), and DTensor's view rules read a local gradient's
+    strides as those of a contiguous tensor (the backward of a
+    tensor-parallel projection failed on one).
+
+    ``work``: the placements that split the core's work (its batch rows,
+    heads or channels).  Where the work is split over a mesh dim and ``x``
+    is replicated over it (a weight against split rows, B and C against
+    split channels), each rank's gradient of ``x`` covers its own share of
+    the work: a partial sum over that dim."""
+    from torch.distributed.tensor import Partial
+
+    grad = None
+    if work is not None:
+        grad = tuple(Partial() if w.is_shard() and not p.is_shard() else p
+                     for w, p in zip(work, placements))
+    return _ContiguousGrad.apply(
+        x.redistribute(x.device_mesh, placements).to_local(
+            grad_placements=grad))
+
+
+def from_local(local, mesh, placements, shape):
+    """A rank's contiguous local result as a DTensor of global ``shape``
+    (the contiguous global stride, computed without allocating)."""
+    from torch.distributed.tensor import DTensor
+
+    stride, step = [], 1
+    for size in reversed(tuple(shape)):
+        stride.append(step)
+        step *= size
+    return DTensor.from_local(local, mesh, placements, shape=torch.Size(shape),
+                              stride=tuple(reversed(stride)))
 
 
 def gather_rows(table, idx):
@@ -336,6 +456,34 @@ def shard_put(tree, mesh, specs=None):
         return tree
     specs = param_specs(tree, mesh) if specs is None else specs
     return {k: _put(t, mesh, specs[k]) for k, t in tree.items()}
+
+
+def gather_sequence(x):
+    """A sequence-parallel activation [B, S, ...] with its sequence dim
+    gathered (Shard(1) -> Replicate), as Megatron's sequence parallelism
+    gathers before a tensor-parallel region; anything else unchanged.
+    The matmuls flatten batch and sequence, which PyTorch 2.11's DTensor
+    refuses while the sequence is sharded."""
+    from torch.distributed.tensor import Replicate
+
+    if not hasattr(x, "placements") or not any(p.is_shard(1)
+                                               for p in x.placements):
+        return x
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if p.is_shard(1) else p for p in x.placements))
+
+
+def as_residual(y, x):
+    """A mixer's or MLP's output ``y`` redistributed to the placements of
+    the residual stream ``x`` that it is added to, where ``x`` is
+    sequence-parallel (a reduce-scatter of a partial sum): left to the
+    add, the gradient of ``y`` would reach the matmul before it with the
+    sequence still sharded, which PyTorch 2.11's DTensor cannot flatten.
+    Anything else unchanged."""
+    if not hasattr(x, "placements") or not any(p.is_shard(1)
+                                               for p in x.placements):
+        return y
+    return y.redistribute(x.device_mesh, x.placements)
 
 
 def constrain_activations(x, mesh, *, seq_axis: bool = False):

@@ -29,6 +29,7 @@ rung; the device is synchronised at each stage boundary so
 """
 from __future__ import annotations
 
+import os
 import time
 from typing import NamedTuple
 
@@ -406,6 +407,14 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def _env_prefilter(prefilter: bool | None) -> bool:
+    """None -> the ``REPRO_GRAPH_PREFILTER`` environment default (on unless
+    "0"), as the reference resolves it."""
+    if prefilter is None:
+        return os.environ.get("REPRO_GRAPH_PREFILTER", "1") != "0"
+    return bool(prefilter)
+
+
 class GraphMapExecutor:
     """Host-orchestrated three-stage graph mapper for one geometry.
 
@@ -429,7 +438,7 @@ class GraphMapExecutor:
                  minimizer_w: int = 10,
                  minimizer_k: int = 15,
                  backend: str | None = None,
-                 prefilter: bool = True):
+                 prefilter: bool | None = None):
         if filter_bits % 32:
             raise ValueError(f"filter_bits must be a multiple of 32, got "
                              f"{filter_bits}")
@@ -438,7 +447,7 @@ class GraphMapExecutor:
         self.t_cap = p_cap + 2 * cfg.w
         self.tile_stride = tile_stride
         self.max_candidates = max_candidates
-        self.prefilter = prefilter
+        self.prefilter = _env_prefilter(prefilter)
         self._backend = backend
         fbits = min(filter_bits, p_cap)
         self._pf_kw = dict(
@@ -508,14 +517,14 @@ def map_batch(garr: GraphArrays, reads, read_lens, *, tile_stride: int,
               filter_bits: int = 128, filter_k: int = 12,
               max_candidates: int = 4, minimizer_w: int = 10,
               minimizer_k: int = 15, backend: str | None = None,
-              prefilter: bool = True) -> GraphMapResult:
+              prefilter: bool | None = None) -> GraphMapResult:
     """Map a read batch against the tiled graph index.
 
     ``garr`` is the device half of a `GraphIndex` built with
     ``tile_stride``.  ``backend`` resolves through `repro_torch.align`
     with linear names mapped to their graph twins.  ``prefilter``
-    toggles the q-gram tile screen; results are bitwise identical either
-    way.
+    toggles the q-gram tile screen (None: the ``REPRO_GRAPH_PREFILTER``
+    default, on unless "0"); results are bitwise identical either way.
     """
     return GraphMapExecutor(
         tile_stride=tile_stride, cfg=cfg, p_cap=p_cap,

@@ -144,15 +144,15 @@ def _on_shards(q, k, v, **kw):
     first.  DTensor cannot take the core's einsums itself: they flatten
     the sharded batch and head dims together.
     """
-    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor import Replicate
 
-    mesh = q.device_mesh
-    keep = tuple(pq if pq == pk == pv and (pq.is_shard(0) or pq.is_shard(2))
-                 else Replicate()
-                 for pq, pk, pv in zip(q.placements, k.placements, v.placements))
-    q, k, v = (t.redistribute(mesh, keep) for t in (q, k, v))
-    out = blockwise_attention(q.to_local(), k.to_local(), v.to_local(), **kw)
-    return DTensor.from_local(out, mesh, keep, shape=q.shape, stride=q.stride())
+    from repro_torch.dist.sharding import (from_local, local_shard,
+                                           work_placements)
+
+    keep = tuple(pq if pq == pk == pv else Replicate() for pq, pk, pv in
+                 zip(work_placements(q), k.placements, v.placements))
+    out = blockwise_attention(*(local_shard(t, keep) for t in (q, k, v)), **kw)
+    return from_local(out, q.device_mesh, keep, q.shape)
 
 
 def attention(cfg, p, x, positions, *, causal=True):
@@ -173,7 +173,8 @@ def cross_attention(cfg, p, x, memory):
     return _out(blockwise_attention(q, k, v, causal=False), p.wo)
 
 
-def decode_attention(cfg, p, x, cache_k, cache_v, cache_pos, cache_len):
+def decode_attention(cfg, p, x, cache_k, cache_v, cache_pos, cache_len, *,
+                     kv_placements=None):
     """Single-token decode against a KV cache.
 
     x: [B, 1, D]; cache_k/v: [B, S, Hkv, Dh]; cache_pos: [S] the absolute
@@ -182,12 +183,35 @@ def decode_attention(cfg, p, x, cache_k, cache_v, cache_pos, cache_len):
     integer tensor.  The cache scores and the new token's own score share
     one softmax.
     Returns (out [B, 1, D], new_k [B, 1, Hkv, Dh], new_v).
+
+    On a mesh, ``x`` and the parameters are DTensors and the cache is a
+    rank's local shard of a state placed as ``kv_placements`` (one
+    placement per mesh dimension, of a [B, S, Hkv, Dh] row): q, k and v
+    are redistributed to those placements (a query head's KV head is then
+    its rank's own: heads split in whole groups), the core runs on local
+    tensors, and new_k/new_v come back as local shards, ready to write.
     """
-    dt = x.dtype
-    b, s, hkv, dh = cache_k.shape
+    b = x.shape[0]
     pos = torch.as_tensor(cache_len, device=x.device).reshape(1, 1).expand(b, 1)
     q, k, v = _qkv(cfg, p, x, pos)
-    h = cfg.n_heads
+    if kv_placements is None:
+        out = _decode_core(cfg, q, k, v, cache_k, cache_v, cache_pos, pos[:1])
+        return _out(out, p.wo), k, v
+    from repro_torch.dist.sharding import from_local, local_shard
+
+    shape = q.shape
+    q, k, v = (local_shard(t, kv_placements) for t in (q, k, v))
+    out = _decode_core(cfg, q, k, v, cache_k, cache_v, cache_pos, pos[:1])
+    out = from_local(out, x.device_mesh, kv_placements, shape)
+    return _out(out, p.wo), k, v
+
+
+def _decode_core(cfg, q, k, v, cache_k, cache_v, cache_pos, pos):
+    """The decode attention core on plain tensors: q [B, 1, H, Dh], k/v
+    [B, 1, Hkv, Dh], the cache, pos [1, 1] -> [B, 1, H, Dh]."""
+    dt = q.dtype
+    b, s, hkv, dh = cache_k.shape
+    h = q.shape[2]
     g = h // hkv
     scale = 1.0 / np.sqrt(dh)
     qh = q.reshape(b, hkv, g, dh)
@@ -206,5 +230,4 @@ def decode_attention(cfg, p, x, cache_k, cache_v, cache_pos, cache_len):
     w = torch.softmax(full, dim=-1).to(dt)
     out = torch.einsum("bhgs,bshd->bhgd", w[..., :-1], cache_v) + \
         w[..., -1][..., None] * v[:, 0][:, :, None, :]
-    y = _out(out.reshape(b, 1, h, dh).to(dt), p.wo)
-    return y, k, v
+    return out.reshape(b, 1, h, dh).to(dt)

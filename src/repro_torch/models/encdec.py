@@ -19,7 +19,7 @@ from torch.utils.checkpoint import checkpoint
 from . import attention as attn
 from .layers import (COMPUTE_DTYPE, apply_norm, dense_init, embed_init,
                      holder, make_norm, mlp_apply, mlp_init)
-from .transformer import logits_head
+from .transformer import embed_tokens, logits_head
 
 
 def _layer(cfg, names, *, generator, device) -> nn.Module:
@@ -58,8 +58,11 @@ class EncDecLM(nn.Module):
         self.frontend_proj = holder(w=dense_init((fd, cfg.d_model), **kw))
 
 
-def _layers(body, blocks, x, remat: bool, *args):
+def _layers(body, blocks, x, remat: bool, mesh, *args):
+    from repro_torch.dist.sharding import constrain_activations
+
     for lp in blocks:
+        x = constrain_activations(x, mesh)
         if remat and torch.is_grad_enabled():
             x = checkpoint(body, lp, x, *args, use_reentrant=False)
         else:
@@ -67,43 +70,51 @@ def _layers(body, blocks, x, remat: bool, *args):
     return x
 
 
-def encode(cfg, model, frames, *, remat=True):
+def encode(cfg, model, frames, *, remat=True, mesh=None):
     """frames: [B, S_enc, frontend_dim] stub embeddings -> memory
-    [B, S_enc, D] bf16."""
-    x = frames.to(COMPUTE_DTYPE) @ model.frontend_proj.w.to(COMPUTE_DTYPE)
-    b, s, _ = x.shape
-    pos = torch.arange(s, device=x.device).expand(b, s)
+    [B, S_enc, D] bf16.  With ``mesh`` the parameters and ``frames`` are
+    DTensors and the residual stream is constrained at every layer
+    (batch over the data axes), as `transformer.forward` constrains it."""
+    from repro_torch.dist.sharding import sharded_ops
 
-    def body(lp, x):
-        h = apply_norm(cfg, lp.norm1, x)
-        y = x + attn.attention(cfg, lp.attn, h, pos, causal=False)
-        return y + mlp_apply(cfg, lp.mlp, apply_norm(cfg, lp.norm2, y))
+    with sharded_ops(mesh):
+        x = frames.to(COMPUTE_DTYPE) @ model.frontend_proj.w.to(COMPUTE_DTYPE)
+        b, s, _ = x.shape
+        pos = torch.arange(s, device=x.device).expand(b, s)
 
-    x = _layers(body, model.enc_blocks, x, remat)
-    return apply_norm(cfg, model.enc_norm, x)
+        def body(lp, x):
+            h = apply_norm(cfg, lp.norm1, x)
+            y = x + attn.attention(cfg, lp.attn, h, pos, causal=False)
+            return y + mlp_apply(cfg, lp.mlp, apply_norm(cfg, lp.norm2, y))
+
+        x = _layers(body, model.enc_blocks, x, remat, mesh)
+        return apply_norm(cfg, model.enc_norm, x)
 
 
-def decode(cfg, model, tokens, memory, *, remat=True):
+def decode(cfg, model, tokens, memory, *, remat=True, mesh=None):
     """tokens: [B, S_dec]; memory: [B, S_enc, D] -> hidden [B, S_dec, D]."""
-    x = model.embed.tokens[tokens.long()].to(COMPUTE_DTYPE)
-    b, s, _ = x.shape
-    pos = torch.arange(s, device=x.device).expand(b, s)
+    from repro_torch.dist.sharding import sharded_ops
 
-    def body(lp, x, memory):
-        h = apply_norm(cfg, lp.norm1, x)
-        y = x + attn.attention(cfg, lp.attn, h, pos, causal=True)
-        hx = apply_norm(cfg, lp.norm_x, y)
-        y = y + attn.cross_attention(cfg, lp.xattn, hx, memory)
-        return y + mlp_apply(cfg, lp.mlp, apply_norm(cfg, lp.norm2, y))
+    with sharded_ops(mesh):
+        x = embed_tokens(model, tokens, mesh)
+        b, s, _ = x.shape
+        pos = torch.arange(s, device=x.device).expand(b, s)
 
-    x = _layers(body, model.dec_blocks, x, remat, memory)
-    return apply_norm(cfg, model.final_norm, x)
+        def body(lp, x, memory):
+            h = apply_norm(cfg, lp.norm1, x)
+            y = x + attn.attention(cfg, lp.attn, h, pos, causal=True)
+            hx = apply_norm(cfg, lp.norm_x, y)
+            y = y + attn.cross_attention(cfg, lp.xattn, hx, memory)
+            return y + mlp_apply(cfg, lp.mlp, apply_norm(cfg, lp.norm2, y))
+
+        x = _layers(body, model.dec_blocks, x, remat, mesh, memory)
+        return apply_norm(cfg, model.final_norm, x)
 
 
-def forward(cfg, model, tokens, frames, *, remat=True):
+def forward(cfg, model, tokens, frames, *, remat=True, mesh=None):
     """(hidden [B, S_dec, D], aux loss 0)."""
-    memory = encode(cfg, model, frames, remat=remat)
-    hidden = decode(cfg, model, tokens, memory, remat=remat)
+    memory = encode(cfg, model, frames, remat=remat, mesh=mesh)
+    hidden = decode(cfg, model, tokens, memory, remat=remat, mesh=mesh)
     return hidden, torch.zeros((), dtype=torch.float32, device=hidden.device)
 
 
@@ -117,28 +128,39 @@ def decode_state_init(cfg, batch: int, max_len: int, *, device=None):
                               device=device)}
 
 
-def decode_step(cfg, model, state, tokens, pos, memory):
+def decode_step(cfg, model, state, tokens, pos, memory, mesh=None):
     """One decoder token that cross-attends the (precomputed) encoder
     ``memory``.  tokens: [B, 1]; pos: an int or a 0-d integer tensor.  The
     new K/V go to row ``pos`` clamped into the cache, as the reference's
     ``dynamic_update_slice`` clamps its start.  Returns (logits
-    [B, padded_vocab] fp32, state), the state updated in place."""
+    [B, padded_vocab] fp32, state), the state updated in place.  With
+    ``mesh`` the parameters, tokens, memory and state are DTensors and
+    each rank writes its own shard of the cache
+    (`transformer._attn_decode`)."""
+    from repro_torch.dist.sharding import row_placements, sharded_ops
+
     if isinstance(pos, torch.Tensor):
         pos = pos.to(device=tokens.device, dtype=torch.int64)
     else:
         pos = torch.full((), pos, dtype=torch.int64, device=tokens.device)
-    write = torch.clamp(pos, 0, state["k"].shape[2] - 1).reshape(1)
-    x = model.embed.tokens[tokens.long()].to(COMPUTE_DTYPE)
-    for i, lp in enumerate(model.dec_blocks):
-        h = apply_norm(cfg, lp.norm1, x)
-        a, k_new, v_new = attn.decode_attention(
-            cfg, lp.attn, h, state["k"][i], state["v"][i], state["pos"][i], pos)
-        state["k"][i].index_copy_(1, write, k_new)
-        state["v"][i].index_copy_(1, write, v_new)
-        state["pos"][i].index_copy_(0, write, pos.reshape(1).to(torch.int32))
-        y = x + a
-        hx = apply_norm(cfg, lp.norm_x, y)
-        y = y + attn.cross_attention(cfg, lp.xattn, hx, memory)
-        x = y + mlp_apply(cfg, lp.mlp, apply_norm(cfg, lp.norm2, y))
-    x = apply_norm(cfg, model.final_norm, x)
-    return logits_head(cfg, model, x)[:, -1], state
+    kv_placements, st = None, state
+    if mesh is not None:  # each rank reads and writes its own shard
+        kv_placements = row_placements(state["k"].placements)
+        st = {k: v.to_local() for k, v in state.items()}
+    write = torch.clamp(pos, 0, st["k"].shape[2] - 1).reshape(1)
+    with sharded_ops(mesh):
+        x = embed_tokens(model, tokens, mesh)
+        for i, lp in enumerate(model.dec_blocks):
+            h = apply_norm(cfg, lp.norm1, x)
+            a, k_new, v_new = attn.decode_attention(
+                cfg, lp.attn, h, st["k"][i], st["v"][i], st["pos"][i], pos,
+                kv_placements=kv_placements)
+            st["k"][i].index_copy_(1, write, k_new)
+            st["v"][i].index_copy_(1, write, v_new)
+            st["pos"][i].index_copy_(0, write, pos.reshape(1).to(torch.int32))
+            y = x + a
+            hx = apply_norm(cfg, lp.norm_x, y)
+            y = y + attn.cross_attention(cfg, lp.xattn, hx, memory)
+            x = y + mlp_apply(cfg, lp.mlp, apply_norm(cfg, lp.norm2, y))
+        x = apply_norm(cfg, model.final_norm, x)
+        return logits_head(cfg, model, x)[:, -1], state

@@ -109,6 +109,61 @@ def _ssm_chunked(u, dt, B, C, A, chunk: int):
     return torch.cat(ys, dim=1)
 
 
+def _on_shards(x, channel: int):
+    """The placements a per-channel op keeps for DTensor ``x`` [b, L, C]:
+    each mesh dim keeps a batch (dim 0) or channel (dim 2) shard, and
+    replicates otherwise; and, for a [.., C] or [C, ..] operand whose
+    channel dim is ``channel``, its matching placements."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.dist.sharding import work_placements
+
+    keep = work_placements(x)
+    chan = tuple(Shard(channel) if pl.is_shard(2) else Replicate()
+                 for pl in keep)
+    return keep, chan
+
+
+def _causal_conv(xs, w, b, d_conv: int):
+    """Depthwise causal conv1d of xs [B, L, di] with w [d_conv, di], summed
+    term by term in the input dtype, plus the bias, then SiLU."""
+    L = xs.shape[1]
+    xp = F.pad(xs, (0, 0, d_conv - 1, 0))
+    conv = xp[:, 0: L] * w[0]
+    for i in range(1, d_conv):
+        conv = conv + xp[:, i: i + L] * w[i]
+    return F.silu(conv + b)
+
+
+def _conv_on_shards(xs, w, b, d_conv: int):
+    """``_causal_conv`` of DTensors on each rank's batch rows and channels
+    as local tensors (PyTorch 2.11's DTensor fails on the pad)."""
+    from repro_torch.dist.sharding import from_local, local_shard
+
+    keep, w_chan = _on_shards(xs, 1)
+    _, b_chan = _on_shards(xs, 0)
+    y = _causal_conv(local_shard(xs, keep), local_shard(w, w_chan, keep),
+                     local_shard(b, b_chan, keep), d_conv)
+    return from_local(y, xs.device_mesh, keep, xs.shape)
+
+
+def _ssm_on_shards(u, dt, B, C, A, chunk: int):
+    """``_ssm_chunked`` of DTensors on each rank's batch rows and channels
+    as local tensors: u/dt keep their batch and channel shards, B/C their
+    batch shard (replicated over the channel axes) and A [di, n] the
+    channel shard."""
+    from torch.distributed.tensor import Replicate
+
+    from repro_torch.dist.sharding import from_local, local_shard
+
+    keep, chan = _on_shards(u, 0)
+    rows = tuple(pl if pl.is_shard(0) else Replicate() for pl in keep)
+    y = _ssm_chunked(local_shard(u, keep), local_shard(dt, keep),
+                     local_shard(B, rows, keep), local_shard(C, rows, keep),
+                     local_shard(A, chan, keep), chunk)
+    return from_local(y, u.device_mesh, keep, u.shape)
+
+
 def _split_proj(mc, p, xs):
     proj = xs @ p.x_proj.to(xs.dtype)
     dt_rank = p.dt_proj.shape[0]
@@ -122,21 +177,18 @@ def mamba_apply(cfg, p, x):
     """x: [B, L, D] -> [B, L, D]."""
     mc = cfg.mamba
     dt_ = x.dtype
-    b, L, _ = x.shape
     xs, z = torch.chunk(x @ p.in_proj.to(dt_), 2, dim=-1)  # [B, L, di]
 
     # depthwise causal conv1d, summed term by term in bf16
-    w = p.conv_w.to(dt_)
-    xp = F.pad(xs, (0, 0, mc.d_conv - 1, 0))
-    conv = xp[:, 0: L] * w[0]
-    for i in range(1, mc.d_conv):
-        conv = conv + xp[:, i: i + L] * w[i]
-    xs = F.silu(conv + p.conv_b.to(dt_))
+    sharded = hasattr(xs, "to_local")
+    conv = _conv_on_shards if sharded else _causal_conv
+    xs = conv(xs, p.conv_w.to(dt_), p.conv_b.to(dt_), mc.d_conv)
 
     delta, Bx, Cx = _split_proj(mc, p, xs)
     A = -torch.exp(p.A_log)  # [di, n]
     bf = torch.bfloat16
-    y = _ssm_chunked(xs.to(bf), delta.to(bf), Bx.to(bf), Cx.to(bf), A, mc.chunk)
+    scan = _ssm_on_shards if sharded else _ssm_chunked
+    y = scan(xs.to(bf), delta.to(bf), Bx.to(bf), Cx.to(bf), A, mc.chunk)
     y = (y + xs.float() * p.D).to(dt_)
     y = y * F.silu(z)
     return y @ p.out_proj.to(dt_)
@@ -155,7 +207,8 @@ def mamba_decode_init(cfg, batch: int, n_blocks: int, *, device=None):
 def mamba_decode(cfg, p, x, conv_state, h_state):
     """Single-token decode.  x: [B, 1, D]; ``conv_state`` [B, d_conv-1, di]
     and ``h_state`` [B, di, n] are one block's rows of the decode state,
-    updated in place.  Returns [B, 1, D]."""
+    updated in place (DTensor rows keep their placements:
+    `dist.sharding.write_state`).  Returns [B, 1, D]."""
     mc = cfg.mamba
     dt_ = x.dtype
     xs, z = torch.chunk(x[:, 0] @ p.in_proj.to(dt_), 2, dim=-1)
@@ -168,6 +221,12 @@ def mamba_decode(cfg, p, x, conv_state, h_state):
     h = dA * h_state + (delta * xs.float())[..., None] * Bx.float()[:, None, :]
     y = torch.einsum("bdn,bn->bd", h, Cx.float())
     y = (y + xs.float() * p.D).to(dt_) * F.silu(z)
-    conv_state.copy_(window[:, 1:])
-    h_state.copy_(h)
+    if hasattr(conv_state, "to_local"):  # rows of a placed decode state
+        from repro_torch.dist.sharding import write_state
+
+        write_state(conv_state, window[:, 1:])
+        write_state(h_state, h)
+    else:
+        conv_state.copy_(window[:, 1:])
+        h_state.copy_(h)
     return (y @ p.out_proj.to(dt_))[:, None]

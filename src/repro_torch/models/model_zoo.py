@@ -52,7 +52,7 @@ def loss_fn(cfg: ModelConfig, params, batch, *, remat: bool = True, mesh=None,
     """batch: dict(tokens, targets, mask [, frames | prefix_embeds])."""
     if is_encdec(cfg):
         hidden, aux = encdec.forward(cfg, params, batch["tokens"],
-                                     batch["frames"], remat=remat)
+                                     batch["frames"], remat=remat, mesh=mesh)
     elif cfg.frontend == "vision_stub":
         hidden, aux = transformer.forward(
             cfg, params, batch["tokens"], prefix_embeds=batch["prefix_embeds"],
@@ -61,23 +61,31 @@ def loss_fn(cfg: ModelConfig, params, batch, *, remat: bool = True, mesh=None,
     else:
         hidden, aux = transformer.forward(cfg, params, batch["tokens"],
                                           remat=remat, mesh=mesh, sp=sp)
+    if sp:  # the chunked loss cuts the sequence: gathered over "model" first
+        from repro_torch.dist.sharding import gather_sequence
+
+        hidden = gather_sequence(hidden)
     emb = (params.embed.tokens if cfg.tie_embeddings else params.lm_head.w.T)
     xent, acc = chunked_logits_xent(hidden, emb, batch["targets"], batch["mask"])
     return xent + aux, {"xent": xent, "aux": aux, "acc": acc}
 
 
 @torch.no_grad()
-def prefill_fn(cfg: ModelConfig, params, batch):
-    """Prefill: hidden-states forward; returns last-position logits."""
+def prefill_fn(cfg: ModelConfig, params, batch, *, mesh=None):
+    """Prefill: hidden-states forward; returns last-position logits (a
+    DTensor with ``mesh``, on DTensor parameters and batch)."""
+    from repro_torch.dist.sharding import sharded_ops
+
     if is_encdec(cfg):
-        memory = encdec.encode(cfg, params, batch["frames"])
-        hidden = encdec.decode(cfg, params, batch["tokens"], memory)
+        memory = encdec.encode(cfg, params, batch["frames"], mesh=mesh)
+        hidden = encdec.decode(cfg, params, batch["tokens"], memory, mesh=mesh)
     else:
         prefix = (batch["prefix_embeds"] if cfg.frontend == "vision_stub"
                   else None)
         hidden, _ = transformer.forward(cfg, params, batch["tokens"],
-                                        prefix_embeds=prefix)
-    return transformer.logits_head(cfg, params, hidden[:, -1:])[:, -1]
+                                        prefix_embeds=prefix, mesh=mesh)
+    with sharded_ops(mesh):
+        return transformer.logits_head(cfg, params, hidden[:, -1:])[:, -1]
 
 
 def decode_state_init(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -88,13 +96,16 @@ def decode_state_init(cfg: ModelConfig, batch: int, max_len: int, *,
 
 
 @torch.no_grad()
-def decode_fn(cfg: ModelConfig, params, state, batch, pos):
+def decode_fn(cfg: ModelConfig, params, state, batch, pos, *, mesh=None):
     """One token for the whole batch against the decode state (updated in
-    place and returned); the encoder-decoder reads ``batch["memory"]``."""
+    place and returned); the encoder-decoder reads ``batch["memory"]``.
+    With ``mesh`` the parameters, batch and state are DTensors
+    (`dist.sharding.shard_put`, `shard_state`)."""
     if is_encdec(cfg):
         return encdec.decode_step(cfg, params, state, batch["tokens"], pos,
-                                  batch["memory"])
-    return transformer.decode_step(cfg, params, state, batch["tokens"], pos)
+                                  batch["memory"], mesh)
+    return transformer.decode_step(cfg, params, state, batch["tokens"], pos,
+                                   mesh)
 
 
 # --------------------------------------------------------------- batches ---

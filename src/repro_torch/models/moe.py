@@ -157,7 +157,9 @@ def moe_apply(cfg, p, x, mesh=None):
 
     Tokens are dispatched in ``MOE_CHUNK_TOKENS`` chunks when there are at
     least two that divide the tokens evenly, each recomputed in the
-    backward; the aux loss is then the mean over chunks.
+    backward; the aux loss is then the mean over chunks.  On a mesh the
+    chunks are cut from the gathered tokens (the chunk loop cannot slice
+    the data-sharded token dim), as one chunk's tokens are gathered.
     """
     b, s, d = x.shape
     t = b * s
@@ -170,6 +172,10 @@ def moe_apply(cfg, p, x, mesh=None):
         out, aux = _moe_chunk(cfg, p, xt, *on_mesh)
         return out.reshape(b, s, d), aux
     outs, aux = [], torch.zeros((), dtype=torch.float32, device=x.device)
+    if mesh is not None:  # each chunk is routed whole: gather every token
+        from torch.distributed.tensor import Replicate
+
+        xt = xt.redistribute(mesh, (Replicate(),) * mesh.ndim)
     for xc in xt.reshape(n_chunks, t // n_chunks, d):
         if torch.is_grad_enabled():
             o, a = checkpoint(_moe_chunk, cfg, p, xc, *on_mesh,

@@ -76,6 +76,40 @@ def _wkv_chunked(r, k, v, w, u, chunk: int):
     return torch.stack(ys, dim=1), S
 
 
+def _wkv_on_shards(cfg, r, k, v, w, u, wkv=None):
+    """The WKV recurrence of DTensor r/k/v/w [B, L, H, dh] on each rank's
+    local shards: batch rows and heads are independent, so a mesh
+    dimension keeps r's batch (dim 0) or head (dim 2) shard and k, v, w
+    and the bonus ``u`` [H, dh] are redistributed alike (anything else is
+    replicated).  Left to DTensor, every time step's einsums would flatten
+    the sharded batch and head dims together.  With ``wkv`` (one block's
+    rows of a placed decode state, [B, H, dh, dh]) it takes one step from
+    that state and writes the new state back in the state's placements.
+    Returns y [B, L, H, dh], a DTensor."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro_torch.dist.sharding import (from_local, local_shard,
+                                           work_placements, write_state)
+
+    mesh = r.device_mesh
+    keep = work_placements(r)
+    heads = tuple(Shard(0) if pl.is_shard(2) else Replicate()
+                  for pl in keep)  # u's [H, dh] placements
+    shape = r.shape
+    r, k, v, w = (local_shard(t, keep) for t in (r, k, v, w))
+    u = local_shard(u, heads, keep)
+    if wkv is None:
+        chunk = min(cfg.mamba.chunk if cfg.mamba else 128, shape[1])
+        y, _ = _wkv_chunked(r, k, v, w, u, chunk)
+    else:
+        rows = tuple(Shard(1) if pl.is_shard(2) else pl for pl in keep)
+        S, y = _wkv_step(wkv.redistribute(mesh, rows).to_local(), r[:, 0],
+                         k[:, 0], v[:, 0], w[:, 0], u)
+        write_state(wkv, from_local(S, mesh, rows, wkv.shape))
+        y = y[:, None]
+    return from_local(y, mesh, keep, shape)
+
+
 def rwkv_apply(cfg, p, x, *, shift=None, wkv=None):
     """Time-mix block.  x: [B, L, D].  With a decode state (``shift`` [B, D],
     ``wkv`` [B, H, dh, dh], one block's rows) the block takes one step
@@ -99,7 +133,13 @@ def rwkv_apply(cfg, p, x, *, shift=None, wkv=None):
     w = torch.exp(-torch.exp(p.w0 + dd)).reshape(b, L, h, dh)
     g = F.silu(mix(4) @ p.wg.to(dt_))
 
-    if wkv is None:
+    if hasattr(r, "to_local"):
+        y = _wkv_on_shards(cfg, r, k, v, w, p.u, wkv)
+        if shift is not None:
+            from repro_torch.dist.sharding import write_state
+
+            write_state(shift, x[:, -1])
+    elif wkv is None:
         chunk = min(cfg.mamba.chunk if cfg.mamba else 128, L)
         y, _ = _wkv_chunked(r, k, v, w, p.u, chunk)
     else:
@@ -138,7 +178,11 @@ def rwkv_channel_mix(cfg, p, x, *, shift=None):
     xr = x * mu[1] + xprev * (1 - mu[1])
     kk = torch.square(F.relu(xk @ p.wk.to(dt_)))
     out = torch.sigmoid(xr @ p.wr.to(dt_)) * (kk @ p.wv.to(dt_))
-    if shift is not None:
+    if hasattr(shift, "to_local"):  # a row of a placed decode state
+        from repro_torch.dist.sharding import write_state
+
+        write_state(shift, x[:, -1])
+    elif shift is not None:
         shift.copy_(x[:, -1])
     return out
 

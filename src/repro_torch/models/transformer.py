@@ -66,7 +66,9 @@ def _mlp_part(cfg, p, kind, h, aux, mesh):
 
 
 def _slot_apply(cfg, p, x, positions, kind, aux, mesh):
-    h = apply_norm(cfg, p.norm1, x)
+    from repro_torch.dist.sharding import as_residual, gather_sequence
+
+    h = gather_sequence(apply_norm(cfg, p.norm1, x))
     if kind == "attn":
         a = attn.attention(cfg, p.attn, h, positions)
     elif kind == "mamba":
@@ -76,10 +78,11 @@ def _slot_apply(cfg, p, x, positions, kind, aux, mesh):
     if cfg.parallel_block:
         # command-r style: MLP on the same normed input, single residual add
         m, aux = _mlp_part(cfg, p, kind, h, aux, mesh)
-        return x + a + m, aux
-    x = x + a
-    m, aux = _mlp_part(cfg, p, kind, apply_norm(cfg, p.norm2, x), aux, mesh)
-    return x + m, aux
+        return x + as_residual(a, x) + as_residual(m, x), aux
+    x = x + as_residual(a, x)
+    m, aux = _mlp_part(cfg, p, kind, gather_sequence(apply_norm(cfg, p.norm2, x)),
+                       aux, mesh)
+    return x + as_residual(m, x), aux
 
 
 def block_apply(cfg, bp, x, positions, mesh=None):
@@ -136,14 +139,22 @@ def forward(cfg, model, tokens, *, prefix_embeds=None, remat: bool = True,
         return _forward(cfg, model, tokens, prefix_embeds, remat, mesh, sp)
 
 
-def _forward(cfg, model, tokens, prefix_embeds, remat, mesh, sp):
-    from repro_torch.dist.sharding import constrain_activations, gather_rows
+def embed_tokens(model, tokens, mesh=None):
+    """The token embeddings in the compute dtype; on a mesh the DTensor
+    table is gathered (`dist.sharding.gather_rows`)."""
+    from repro_torch.dist.sharding import gather_rows
 
     if mesh is None:
         x = model.embed.tokens[tokens.long()]
     else:
         x = gather_rows(model.embed.tokens, tokens)
-    x = x.to(COMPUTE_DTYPE)
+    return x.to(COMPUTE_DTYPE)
+
+
+def _forward(cfg, model, tokens, prefix_embeds, remat, mesh, sp):
+    from repro_torch.dist.sharding import constrain_activations
+
+    x = embed_tokens(model, tokens, mesh)
     if prefix_embeds is not None:
         pe = prefix_embeds.to(COMPUTE_DTYPE) @ model.frontend_proj.w.to(
             COMPUTE_DTYPE)
@@ -207,7 +218,10 @@ def decode_state_init(cfg, batch: int, max_len: int, *, device=None):
 def _quant(x):
     """[B, 1, Hkv, dh] -> int8 and a per-head bf16 scale."""
     x32 = x.float()
-    s = torch.clamp(torch.amax(torch.abs(x32), dim=-1) / 127.0, min=1e-8)
+    # a tensor divisor: CUDA multiplies by the reciprocal of a Python
+    # scalar divisor, which rounds apart from the reference's division
+    s = torch.clamp(torch.amax(torch.abs(x32), dim=-1)
+                    / torch.full((), 127.0, device=x.device), min=1e-8)
     q = torch.clamp(torch.round(x32 / s[..., None]), -127, 127).to(torch.int8)
     return q, s.to(torch.bfloat16)
 
@@ -215,7 +229,18 @@ def _quant(x):
 def _attn_decode(cfg, p, st, blk: int, h, pos):
     """Attention against block ``blk``'s KV cache; writes the new K/V into
     ``st`` in place.  ``pos`` is a 0-d int64 tensor on the device, as the
-    reference's traced position: nothing here reads it on the host."""
+    reference's traced position: nothing here reads it on the host.
+
+    A DTensor state (`dist.sharding.shard_state`) is read and written on
+    each rank's local shards: the new token's q, k and v are
+    redistributed to the cache's placements (`attention.decode_attention`),
+    so the state keeps its placements."""
+    kv_placements = None
+    if hasattr(st["k"], "to_local"):
+        from repro_torch.dist.sharding import row_placements
+
+        kv_placements = row_placements(st["k"].placements)
+        st = {k: v.to_local() for k, v in st.items()}
     s_max = st["k"].shape[2]
     if cfg.sliding_window is not None:
         write = pos % s_max  # ring layout; cache "pos" keeps absolutes
@@ -229,7 +254,8 @@ def _attn_decode(cfg, p, st, blk: int, h, pos):
     else:
         ck, cv = st["k"][blk], st["v"][blk]
     a, k_new, v_new = attn.decode_attention(cfg, p.attn, h, ck, cv,
-                                            st["pos"][blk], pos)
+                                            st["pos"][blk], pos,
+                                            kv_placements=kv_placements)
     if int8:
         (k_new, ks), (v_new, vs) = _quant(k_new), _quant(v_new)
         st["k_scale"][blk].index_copy_(1, write, ks)
@@ -240,7 +266,7 @@ def _attn_decode(cfg, p, st, blk: int, h, pos):
     return a
 
 
-def _slot_decode(cfg, p, st, blk: int, x, pos, kind):
+def _slot_decode(cfg, p, st, blk: int, x, pos, kind, mesh=None):
     """One slot of one block; updates the slot's state rows in place."""
     h = apply_norm(cfg, p.norm1, x)
     if kind == "attn":
@@ -258,27 +284,33 @@ def _slot_decode(cfg, p, st, blk: int, x, pos, kind):
     if kind == "rwkv":
         m = rk.rwkv_channel_mix(cfg, p.cmix, h2, shift=st["cm"]["shift"][blk])
     elif hasattr(p, "moe"):
-        m, _ = moe_mod.moe_apply(cfg, p.moe, h2)
+        m, _ = moe_mod.moe_apply(cfg, p.moe, h2, mesh)
     else:
         m = mlp_apply(cfg, p.mlp, h2)
     return x + m
 
 
-def decode_step(cfg, model, state, tokens, pos):
+def decode_step(cfg, model, state, tokens, pos, mesh=None):
     """One decode step.  tokens: [B, 1] integer; pos: the cache length (an
     int, or a 0-d integer tensor on the device).
 
     Returns (logits [B, padded_vocab] fp32, state).  The state is updated
-    in place (where the reference donates it) and returned.
+    in place (where the reference donates it) and returned.  With
+    ``mesh``, the parameters, the tokens and the state are DTensors
+    (`dist.sharding.shard_put`, `shard_state`), each state leaf keeps its
+    placements, and the logits are a DTensor.
     """
+    from repro_torch.dist.sharding import sharded_ops
+
     if isinstance(pos, torch.Tensor):
         pos = pos.to(device=tokens.device, dtype=torch.int64)
     else:
         pos = torch.full((), pos, dtype=torch.int64, device=tokens.device)
-    x = model.embed.tokens[tokens.long()].to(COMPUTE_DTYPE)
-    for blk, bp in enumerate(model.blocks):
-        for i, kind in enumerate(cfg.pattern):
-            x = _slot_decode(cfg, getattr(bp, f"slot{i}"), state[f"slot{i}"],
-                             blk, x, pos, kind)
-    x = apply_norm(cfg, model.final_norm, x)
-    return logits_head(cfg, model, x)[:, -1], state
+    with sharded_ops(mesh):
+        x = embed_tokens(model, tokens, mesh)
+        for blk, bp in enumerate(model.blocks):
+            for i, kind in enumerate(cfg.pattern):
+                x = _slot_decode(cfg, getattr(bp, f"slot{i}"),
+                                 state[f"slot{i}"], blk, x, pos, kind, mesh)
+        x = apply_norm(cfg, model.final_norm, x)
+        return logits_head(cfg, model, x)[:, -1], state

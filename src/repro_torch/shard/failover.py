@@ -203,7 +203,7 @@ def map_batch_with_failover_graph(
     filter_k: int = 12,
     shard_candidates: int = 4,
     backend: str | None = None,
-    prefilter: bool = True,
+    prefilter: bool | None = None,
     lease_s: float = 60.0,
     max_attempts: int = 3,
     fault_hook=None,

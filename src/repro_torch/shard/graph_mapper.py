@@ -30,7 +30,8 @@ from repro_torch.core.mapper import POS_SENTINEL
 from repro_torch.core.segram.graph import HOP_LIMIT
 from repro_torch.graph.mapper import (CandidateStageResult, GraphMapResult,
                                       GraphView, TilePrefilterResult,
-                                      align_winners, graph_backend_name,
+                                      _env_prefilter, align_winners,
+                                      graph_backend_name,
                                       graph_candidate_stage, tile_prefilter,
                                       tile_rung, unmapped_result)
 
@@ -96,7 +97,7 @@ class ShardedGraphMapExecutor:
                  shard_candidates: int = 4,
                  backend: str | None = None,
                  align_sharded: bool = False,
-                 prefilter: bool = True):
+                 prefilter: bool | None = None):
         validate_graph_geometry(sharded, p_cap=p_cap, filter_k=filter_k,
                                 cfg=cfg)
         shard_merge.check_graph_domain(n_tiles=sharded.n_tiles,
@@ -107,7 +108,7 @@ class ShardedGraphMapExecutor:
         self.cfg = cfg
         self.p_cap = p_cap
         self.shard_candidates = shard_candidates
-        self.prefilter = prefilter
+        self.prefilter = prefilter = _env_prefilter(prefilter)
         self._align_stage_name = "align_shard" if align_sharded else "align"
         fbits = min(filter_bits, p_cap)
         geom = dict(tile_stride=sharded.tile_stride, n_tiles=sharded.n_tiles,
@@ -274,10 +275,11 @@ def get_graph_executor(
     filter_k: int = 12,
     shard_candidates: int = 4,
     backend: str | None = None,
-    prefilter: bool = True,
+    prefilter: bool | None = None,
     align_sharded: bool = False,
 ) -> ShardedGraphMapExecutor:
     """Cached :class:`ShardedGraphMapExecutor` per (geometry, params)."""
+    prefilter = _env_prefilter(prefilter)
     key = (sharded.layout_key, sharded.device, cfg, p_cap, filter_bits,
            filter_k, shard_candidates, backend, prefilter, align_sharded)
     ex = _EXECUTORS.get(key)
@@ -306,7 +308,7 @@ def map_batch_sharded_graph(
     filter_k: int = 12,
     shard_candidates: int = 4,
     backend: str | None = None,
-    prefilter: bool = True,
+    prefilter: bool | None = None,
     align_sharded: bool = False,
     pipelined: bool = False,
 ) -> GraphMapResult:

@@ -9,6 +9,8 @@ more than the card's work.  The graph runs the same kernels on the same
 buffers, so the numbers are the eager step's.  The encoder-decoder is
 served through ``prefill_fn`` and ``decode_fn`` with ``batch["memory"]``;
 ``greedy_generate`` has no encoder-decoder branch, as in the reference.
+With a mesh, the prefill and decode steps run on DTensor parameters,
+batch and decode state (`dist.sharding.shard_put`, ``shard_state``).
 """
 from __future__ import annotations
 
@@ -17,16 +19,19 @@ import torch
 from repro_torch.models import model_zoo
 
 
-def build_prefill_step(cfg):
+def build_prefill_step(cfg, mesh=None):
+    """``prefill_step(params, batch)``; with ``mesh`` on DTensors."""
     def prefill_step(params, batch):
-        return model_zoo.prefill_fn(cfg, params, batch)
+        return model_zoo.prefill_fn(cfg, params, batch, mesh=mesh)
 
     return prefill_step
 
 
-def build_decode_step(cfg):
+def build_decode_step(cfg, mesh=None):
+    """``decode_step(params, state, batch, pos)``; with ``mesh`` on
+    DTensors, the state placed by `dist.sharding.shard_state`."""
     def decode_step(params, state, batch, pos):
-        return model_zoo.decode_fn(cfg, params, state, batch, pos)
+        return model_zoo.decode_fn(cfg, params, state, batch, pos, mesh=mesh)
 
     return decode_step
 

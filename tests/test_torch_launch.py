@@ -8,8 +8,9 @@
   keeps no TPU constant); its default is the ``h100_sxm`` spec.
 * A dry-run cell of a reduced config on the production mesh shapes:
   every local shard byte count checked against a numpy count made from
-  the reference's own specs and shapes; no error; ``compile_s``,
-  ``cost`` and ``collectives`` null.
+  the reference's own specs and shapes; no error; ``compile_s`` and
+  ``cost`` null; on 16x16 the sharded step's record, its collectives
+  (no cross-pod bytes) and its measured peak.
 * ``report.main()`` on that result.
 """
 import math
@@ -122,7 +123,11 @@ def reduced_cells(monkeypatch, tmp_path):
                                              ("mixtral-8x7b", "decode_32k"),
                                              ("seamless-m4t-medium", "decode_32k")])
 def test_reduced_cell_bytes(arch, shape_name, reduced_cells):
-    res = dryrun.main(["--arch", arch, "--shape", shape_name], results=reduced_cells)
+    res = dryrun.main(["--arch", arch, "--shape", shape_name, "--multi-pod",
+                       "single"], results=reduced_cells)
+    # 2x16x16 without its sharded step (tests/test_torch_dryrun_sharded.py
+    # runs one multi-pod cell's)
+    res[f"{arch}|{shape_name}|2x16x16"] = dryrun.lower_cell(arch, shape_name, True)
     jcfg = jreduced(jget_config(arch))
     for multi_pod in (False, True):
         rec = res[f"{arch}|{shape_name}|{dryrun.mesh_name(multi_pod)}"]
@@ -130,7 +135,13 @@ def test_reduced_cell_bytes(arch, shape_name, reduced_cells):
         sizes = production_shape(multi_pod=multi_pod)
         assert rec["chips"] == math.prod(sizes.values())
         assert rec["compile_s"] is None and rec["cost"] is None
-        assert rec["collectives"] is None
+        if multi_pod:
+            assert "sharded" not in rec and rec["collectives"] is None
+        else:  # the sharded step ran as rank 0 of the mesh's fake group
+            assert rec["sharded"]["error"] is None, rec["sharded"].get("trace")
+            assert rec["collectives"]["cross_pod_bytes"] == 0
+            assert rec["memory"]["measured"]["peak_bytes_full_depth_est"] >= \
+                rec["memory"]["per_device_total"]
         assert rec["lower_s"] > 0
         assert rec["lower_blocks"] == f"1 of {jcfg.n_blocks} blocks"
         mem = rec["memory"]
