@@ -154,10 +154,32 @@ and sequence-to-graph read-mapping deployments end to end through
                  80 GB per mesh, by the spec count and by rank 0's
                  measured peak (of the cells whose step ran at their
                  length)
+ 16. surface   — the reference's one-read and one-pair entry points and
+                 public wrappers on the card: `core.mapper.map_read` on 32
+                 reads of a seeded 100 kbp reference against `map_batch`'s
+                 rows (position, distance, ops); `graph.batched_graph_align`
+                 on 64 windows of a small graph index's tiles, card against
+                 CPU tensors; the four `kernels.ops` wrappers at B = 37
+                 (and `squeeze`), card against CPU; one pair through
+                 `genasm_distance` (cuda_dc) and `myers_distance`; the 22
+                 names of `repro_torch.graph` in a fresh interpreter; bit
+                 for bit, every kernel launched (site `surface`)
+ 17. examples  — each `examples/torch_*.py` as a subprocess on the card at
+                 its default sizes (`torch_train_lm.py --steps 4`), each
+                 exit code 0
+ 18. shard_per_device — `--device cuda:0,cuda:0` (and `cuda:0,cuda:0,cuda:0`
+                 at 3 shards): one one-row block per listed device, winners
+                 copied to the first; the golden PAF (offline and
+                 `--pipelined`) and GAF at 2 and 3 shards byte for byte, and
+                 the first 512 of the serve phase's reads at full width on
+                 2 shards (cuda_dc_v2) against those reads' rows of its
+                 1-shard PAF
 
 The Myers check at L = 100 kbp, phases 13, 14 and the dist child run in
 the LM lane, a process of its own (`--lm-child`) started after serve, beside phases 7-12 and the read
-pipeline: they share the card and the host with them.  Each phase prints
+pipeline: they share the card and the host with them.  Phases 16-18 run
+in the surface child (`--surface-child`), started right after the LM
+lane, beside both; the parent collects it after segram, before dist.  Each phase prints
 one JSON line, its "t" the seconds since the script started, on one
 clock in every process (a phase's seconds are the difference to the line
 before it in its lane); the LM lane's lines are relayed when it ends.
@@ -2962,6 +2984,270 @@ def dist_dryrun_check(dryrun: DryRun) -> None:
     check(not crossing, f"dry run: 16x16 cells with cross-pod bytes: {crossing}")
 
 
+# ------------------------------------------------------- surface child ----
+# the surface phase: map_read on SURFACE_READS reads of a seeded
+# SURFACE_REF_LEN bp reference; batched_graph_align on SURFACE_GRAPH_B
+# windows of a small graph index; the kernels.ops wrappers at a batch that
+# is not a multiple of 4; one pair through each single-pair entry point
+SURFACE_REF_LEN, SURFACE_READS, SURFACE_CAP = 100_000, 32, 160
+SURFACE_GRAPH_B, SURFACE_OPS_B = 64, 37
+GRAPH_EXPORTS = (
+    "EpochedGraphIndex", "GraphArrays", "GraphIndex", "GraphMapExecutor",
+    "GraphMapResult", "as_graph_text", "batched_graph_align",
+    "bitalign_search", "build_epoched_graph_index", "build_graph_index",
+    "graph_align", "graph_backend_name", "load_graph_index", "map_batch",
+    "map_batch_index", "pack_graph_text", "pack_linear_text",
+    "save_graph_index", "tile_prefilter", "tile_rung", "unmapped_result",
+    "unpack_graph_text")
+# the port's examples, run on the card at their default sizes
+EXAMPLE_RUNS = (("torch_quickstart",), ("torch_read_mapping",),
+                ("torch_graph_alignment",), ("torch_edit_distance_demo",),
+                ("torch_train_lm", "--steps", "4"))
+# the per-device shard placement: every shard on its own listed device
+# (here all cuda:0), the goldens at 2 and 3 shards and the first
+# PER_DEVICE_READS reads of the serve phase's deployment at 2 shards
+PER_DEVICE_READS = 512
+
+
+def tensors_equal(torch, got, want) -> int:
+    """Mismatching elements over the fields of two results (None fields
+    must agree); the card's side is moved to the CPU."""
+    bad = 0
+    for g, w in zip(got, want):
+        if g is None or w is None:
+            bad += int((g is None) != (w is None))
+            continue
+        g = g.cpu()
+        bad += g.numel() if g.shape != w.shape else int((g != w).sum())
+    return bad
+
+
+def surface_phase(torch, np, ops, dev) -> dict:
+    """The reference's single-read, single-pair and graph entry points and
+    the public kernel wrappers on the card, each held bit for bit against
+    the same call on CPU tensors (or, for map_read, against map_batch's
+    rows); returns the kernels' launches in the phase."""
+    from repro_torch.core import edit_distance, mapper, minimizer_index, myers
+    from repro_torch.core.genasm import GenASMConfig
+    from repro_torch.core.segram.graph import build_graph
+    from repro_torch.genomics import encode, simulate
+    from repro_torch.graph import backends, index as graph_index
+
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    mism = {}
+
+    # map_read, read by read, against map_batch's rows of the same reads
+    ref = simulate.random_reference(SURFACE_REF_LEN, seed=11)
+    rs = simulate.simulate_reads(ref, n_reads=SURFACE_READS, read_len=150,
+                                 profile=simulate.ILLUMINA, seed=12)
+    reads, lens = encode.batch_reads(rs.reads, SURFACE_CAP)
+    idx = minimizer_index.build_reference_index(ref, w=8, k=12, device=dev)
+    kw = dict(p_cap=SURFACE_CAP, minimizer_w=8, minimizer_k=12)
+    batch = mapper.map_batch(idx, torch.from_numpy(reads),
+                             torch.from_numpy(lens), **kw)
+    bad = 0
+    for i in range(SURFACE_READS):
+        one = mapper.map_read(idx, torch.from_numpy(reads[i]), int(lens[i]),
+                              **kw)
+        bad += sum(int((getattr(one, f) != getattr(batch, f)[i]).sum())
+                   for f in one._fields)
+    mapped = int((batch.position >= 0).sum())
+    correct = int(sum(abs(int(p) - int(t)) <= 16 for p, t in
+                      zip(batch.position.cpu(), rs.true_pos)))
+    mism["map_read"] = bad
+    check(mapped >= 0.9 * SURFACE_READS and correct >= 0.9 * SURFACE_READS,
+          f"map_batch on {SURFACE_READS} reads: mapped {mapped}, correct "
+          f"{correct}")
+
+    # batched_graph_align: 64 windows of a small graph index's tiles, reads
+    # spelled along the graph from each tile's first node
+    gref = simulate.random_reference(20_000, seed=21)
+    variants = simulate.simulate_variants(gref, n_snp=50, n_ins=25,
+                                          n_del=25, seed=22)
+    g = build_graph(gref, variants)
+    gidx = graph_index.build_graph_index(gref, variants, w=8, k=12,
+                                         window=192, graph=g, device=dev)
+    rng = np.random.default_rng(23)
+    tiles = rng.choice(gidx.n_tiles - 2, SURFACE_GRAPH_B, replace=False)
+    pats = np.full((SURFACE_GRAPH_B, 128), 4, np.int8)
+    p_lens = np.zeros(SURFACE_GRAPH_B, np.int32)
+    for i, t in enumerate(tiles):
+        p = simulate.spell_graph_path(g, int(t) * gidx.tile_stride,
+                                      int(rng.integers(60, 128)), rng)
+        p[rng.integers(0, len(p), size=3)] = rng.integers(0, 4, size=3)
+        pats[i, :len(p)], p_lens[i] = p, len(p)
+    sel = torch.from_numpy(tiles).to(dev)
+    args = (gidx.arrays.tile_gtext[sel], torch.from_numpy(pats).to(dev),
+            torch.from_numpy(p_lens).to(dev), gidx.arrays.tile_valid[sel])
+    got = backends.batched_graph_align(*args, cfg=GenASMConfig(), p_cap=128)
+    want = backends.batched_graph_align(*(a.cpu() for a in args),
+                                        cfg=GenASMConfig(), p_cap=128)
+    mism["batched_graph_align"] = tensors_equal(torch, got, want)
+    graph_aligned = int((want.distance >= 0).sum())
+    check(graph_aligned >= SURFACE_GRAPH_B // 2,
+          f"batched_graph_align aligned {graph_aligned} of {SURFACE_GRAPH_B}")
+
+    # the four kernels.ops wrappers, card against CPU, squeeze included
+    rng = np.random.default_rng(31)
+    calls = {
+        "window_dc": (ops.window_dc, ops.window_inputs, dict(w=64, k=24)),
+        "window_dc_v2": (ops.window_dc_v2, ops.window_inputs,
+                         dict(w=64, k=24)),
+        "myers_distance": (ops.myers_distance, ops.myers_inputs,
+                           dict(n=1192, m_bits=1024, short=True)),
+        "bitalign_dc": (ops.bitalign_dc, ops.bitalign_inputs,
+                        dict(n=64, m_bits=64, k=24, short=True)),
+    }
+    for name, (fn, make, shape) in calls.items():
+        a, kw_ = make(rng, dev, b=SURFACE_OPS_B, **shape)
+        kw_.pop("store_r", None)  # ops.bitalign_dc always stores R
+        got = fn(*a, **kw_)
+        want = fn(*(x.cpu() for x in a), **kw_)
+        mism[f"ops.{name}"] = tensors_equal(
+            torch, got if isinstance(got, tuple) else (got,),
+            want if isinstance(want, tuple) else (want,))
+        if name.startswith("window_dc"):
+            one = [x[:1] for x in a]
+            got = fn(*one, squeeze=True, **kw_)
+            want = fn(*(x.cpu() for x in one), squeeze=True, **kw_)
+            mism[f"ops.{name}.squeeze"] = tensors_equal(torch, got, want)
+
+    # one pair each through genasm_distance (cuda_dc) and myers_distance
+    prng = np.random.default_rng(41)
+    a = simulate.random_reference(1000, seed=42)
+    b = simulate.mutate(a, simulate.ILLUMINA, prng)
+    pbuf = np.full(1064, 4, np.int8); pbuf[:len(b)] = b
+    tbuf = np.full(1192, 4, np.int8); tbuf[:len(a)] = a
+    mbuf = np.full(1024, 4, np.int8); mbuf[:len(b)] = b[:1024]
+    pair = [torch.from_numpy(x) for x in (pbuf, tbuf, mbuf)]
+    distances = {}
+    for key, where in (("card", dev), ("cpu", torch.device("cpu"))):
+        pb, tb, mb = (x.to(where) for x in pair)
+        distances[key] = (
+            int(edit_distance.genasm_distance(pb, tb, len(b), len(a))),
+            int(myers.myers_distance(tb, mb, min(len(b), 1024), m_bits=1024,
+                                     mode="semiglobal")))
+    mism["single_pair"] = int(distances["card"] != distances["cpu"])
+
+    # the package's exports in a fresh interpreter, without JAX
+    code = ("import sys\nfrom repro_torch.graph import (" + ", ".join(
+        GRAPH_EXPORTS) + ")\nassert not [m for m in sys.modules if m == 'jax'"
+        " or m.startswith(('jax.', 'repro.'))]\nprint(len(["
+        + ", ".join(GRAPH_EXPORTS) + "]))")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    check(proc.returncode == 0 and proc.stdout.strip() == "22",
+          f"from repro_torch.graph import the 22 names: {proc.stderr[-2000:]}")
+
+    counts = ops.launch_counts()
+    emit("surface", mismatches=mism, mismatches_total=sum(mism.values()),
+         map_read_reads=SURFACE_READS, mapped=mapped, position_correct=correct,
+         graph_windows=SURFACE_GRAPH_B, graph_aligned=graph_aligned,
+         ops_batch=SURFACE_OPS_B, pair_distances=distances["card"],
+         graph_exports=22, launches=counts,
+         seconds=time.perf_counter() - t_phase, card=card_line())
+    check(sum(mism.values()) == 0, f"surface mismatches: {mism}")
+    check(min(counts.values()) > 0, f"surface: a kernel was not launched "
+                                    f"({counts})")
+    return counts
+
+
+def examples_phase() -> None:
+    """Each `examples/torch_*.py` as a user runs it, on the card (its
+    default device), at its default sizes; each must exit 0."""
+    runs = []
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    ck = OUT / "torch_train_lm_ckpt"
+    for script, *args in EXAMPLE_RUNS:
+        if script == "torch_train_lm":
+            args += ["--ckpt-dir", str(ck)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, str(ROOT / "examples" / f"{script}.py"), *args],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+        (OUT / f"example_{script}.log").write_text(proc.stdout + proc.stderr)
+        runs.append({"script": script, "args": args, "rc": proc.returncode,
+                     "seconds": time.perf_counter() - t0,
+                     "last_line": (proc.stdout.strip().splitlines()
+                                   or [""])[-1][-200:]})
+        check(proc.returncode == 0, f"examples/{script}.py exited "
+                                    f"{proc.returncode}: {proc.stderr[-2000:]}")
+    emit("examples", runs=runs)
+
+
+def shard_per_device_phase(torch, ops, sg, device: str = "cuda:0") -> dict:
+    """``--device cuda:0,cuda:0`` (one one-row block per listed device)
+    through the launcher: the goldens at 2 and 3 shards, offline and
+    pipelined, linear and graph, byte for byte; then the serve phase's
+    first PER_DEVICE_READS reads at full width on 2 shards against their
+    rows of its 1-shard PAF.  Returns the kernels' launches."""
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    runs = []
+    for mode, golden, backend in (("linear", GOLDEN, "cuda_dc"),
+                                  ("graph", GOLDEN_GAF, "graph_cuda")):
+        for shards in (2, 3):
+            extras = [()] + ([("--pipelined",)] if mode == "linear" else [])
+            for extra in extras:
+                out = OUT / (f"per_device_{mode}_s{shards}"
+                             f"{''.join(extra).replace('--', '_')}"
+                             f"{golden.suffix}")
+                sg.main((["--mode", "graph"] if mode == "graph" else [])
+                        + GOLDEN_ARGS + [
+                            "--align-backend", backend, "--device",
+                            ",".join([device] * shards), "--num-shards",
+                            str(shards), *extra, "--out", str(out)])
+                same = out.read_bytes() == golden.read_bytes()
+                runs.append({"mode": mode, "shards": shards,
+                             "extra": " ".join(extra), "identical": same})
+                check(same, f"per-device golden {mode}, {shards} shards "
+                            f"{extra}")
+    golden_counts = ops.launch_counts()
+
+    one = paf_lines_below(OUT / "full_cuda_dc_v2.paf", PER_DEVICE_READS)
+    devices = f"{device},{device}"
+    full = FULL_ARGS + ["--device", devices, "--num-shards", "2"]
+    svc = sg.setup(sg.parse_args(full + ["--reads", str(FULL_READS)]))
+    out = OUT / "per_device_full.paf"
+    ops.reset_launch_counts()
+    s = sg.serve(svc, sg.parse_args(full + [
+        "--reads", str(PER_DEVICE_READS), "--align-backend", "cuda_dc_v2",
+        "--out", str(out)]))
+    full_counts = ops.launch_counts()
+    same = out.read_text().splitlines() == one
+    emit("shard_per_device", golden_runs=runs,
+         golden_launches=golden_counts, reads=s["reads"], mapped=s["mapped"],
+         position_correct=s["correct"], reads_per_s=s["reads_per_s"],
+         backend="cuda_dc_v2", devices=devices,
+         identical_to_one_shard=same, launches=full_counts,
+         seconds=time.perf_counter() - t_phase, card=card_line())
+    check(same, "per-device 2-shard PAF differs from the 1-shard rows")
+    check(full_counts["window_dc_batch_v2"] > 0, "per-device: v2 not launched")
+    return {k: golden_counts[k] + full_counts[k] for k in golden_counts}
+
+
+def surface_child() -> int:
+    """``chip_smoke.py --surface-child``: the surface, examples and
+    shard_per_device phases in a process of their own, started after
+    serve beside the genomics phases and the LM lane."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve_genomics as sg
+
+    dev = torch.device("cuda", 0)
+    surface = surface_phase(torch, np, ops, dev)
+    examples_phase()
+    per_device = shard_per_device_phase(torch, ops, sg)
+    emit("surface_done", launches_surface=surface,
+         launches_shard_per_device=per_device)
+    return 0
+
+
 def lm_child() -> int:
     """``chip_smoke.py --lm-child``: the LM lane in a process of its own,
     beside the genomics phases after serve: the Myers kernel's check at
@@ -2988,17 +3274,20 @@ def lm_child() -> int:
     return 0
 
 
-class LmLane:
-    """`lm_child` started now; its lines go to build/chip_smoke/lm_lane.log
-    and are relayed when it is collected (each carries its "t")."""
+class Lane:
+    """``chip_smoke.py <flag>`` started now as a process of its own; its
+    lines go to build/chip_smoke/<name>.log and are relayed when it is
+    collected (each carries its "t").  The LM lane is ``--lm-child``, the
+    surface child ``--surface-child``."""
 
-    def __init__(self) -> None:
-        self.log = OUT / "lm_lane.log"
-        self.err = OUT / "lm_lane.err"
+    def __init__(self, flag: str, name: str) -> None:
+        self.name = name
+        self.log = OUT / f"{name}.log"
+        self.err = OUT / f"{name}.err"
         self.started = since_start()
         with open(self.log, "w") as out, open(self.err, "w") as err:
             self.proc = subprocess.Popen(
-                [sys.executable, str(ROOT / "chip_smoke.py"), "--lm-child"],
+                [sys.executable, str(ROOT / "chip_smoke.py"), flag],
                 cwd=ROOT, stdout=out, stderr=err)
 
     def collect(self) -> float:
@@ -3012,7 +3301,7 @@ class LmLane:
         waited = since_start() - t
         text = self.log.read_text()
         print(text, end="", flush=True)
-        check(code == 0, f"LM lane exited {code}: "
+        check(code == 0, f"{self.name} exited {code}: "
                          f"{self.err.read_text()[-3000:]}")
         self.lines = {d["phase"]: d for d in map(json.loads, (
             ln for ln in text.splitlines() if ln.startswith('{"phase"')))}
@@ -3024,7 +3313,7 @@ class LmLane:
             self.proc.wait()
 
 
-def dist_phase(torch, ops, sg, lane: LmLane, dryrun: DryRun) -> int:
+def dist_phase(torch, ops, sg, lane: Lane, dryrun: DryRun) -> int:
     """The distribution and dry-run plane on the card: the read pipeline
     (its reads/s are host-bound), then the LM lane, which ran `dist_child`
     after lm_zoo, and the sharded dry run, both collected; returns the read
@@ -3081,13 +3370,15 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rows = kernel_phase(torch, np, ops, dev)
     # from here on the dry run runs on the CPU beside every phase to dist,
-    # and from after serve the LM lane beside the genomics phases
-    dryrun, lane = DryRun(), None
+    # and from after serve the LM lane and the surface child beside the
+    # genomics phases
+    dryrun, lane, surface = DryRun(), None, None
     try:
         golden_phase(sg)
         launches, one_shard_rps = serve_phase(torch, ops, sg)
         torch.cuda.empty_cache()  # the LM lane needs the card's memory
-        lane = LmLane()
+        lane = Lane("--lm-child", "lm_lane")
+        surface = Lane("--surface-child", "surface_lane")
         obs_phase(torch, sg)
         golden_graph_phase(sg)
         graph = graph_serve_phase(torch, ops, sg)
@@ -3107,6 +3398,17 @@ def main() -> int:
                                                                dev)
         prealign_filter_phase(torch, np, dev)
         segram_phase(torch, np, dev)
+        surface_waited = surface.collect()
+        done = surface.lines["surface_done"]
+        for name, row in rows.items():
+            by_site = row.setdefault("launches_by_site", {})
+            if name == "myers_distance_batch":
+                by_site["edit_distance"] = launches[name]
+            by_site["surface"] = done["launches_surface"][name]
+            by_site["shard_per_device"] = \
+                done["launches_shard_per_device"][name]
+        emit("surface_collected", started_t=surface.started,
+             waited_s=surface_waited, ended_t=done["t"])
         rows["window_dc_batch_v2"]["launches_by_site"]["dist_stream"] = \
             dist_phase(torch, ops, sg, lane, dryrun)
         long = lane.lines["kernels_vs_plain_long"]
@@ -3117,8 +3419,9 @@ def main() -> int:
                            max_abs_err=long["max_abs_err"])
     finally:
         dryrun.stop()
-        if lane is not None:
-            lane.stop()
+        for child in (lane, surface):
+            if child is not None:
+                child.stop()
     for name, n in launches.items():
         rows[name]["launches"] = n
     emit("done", seconds=time.perf_counter() - t_start)
@@ -3138,6 +3441,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     CHILDREN = {"--obs-child": obs_child, "--dist-child": dist_child,
-                "--lm-child": lm_child}
+                "--lm-child": lm_child, "--surface-child": surface_child}
     sys.exit(CHILDREN[sys.argv[1]]() if sys.argv[1:2] and sys.argv[1] in CHILDREN
              else main())

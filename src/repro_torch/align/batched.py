@@ -21,6 +21,13 @@ from repro_torch.core.genasm import AlignResult, GenASMConfig
 from repro_torch.kernels.genasm_dc import window_dc_batch
 from repro_torch.kernels.genasm_dc_v2 import window_dc_batch_v2
 
+# names the reference module binds too
+from repro_torch.core.bitvector import pattern_bitmasks  # noqa: F401
+from repro_torch.core.genasm import (pad_pattern, pad_text,  # noqa: F401
+                                     window_commit)
+from repro_torch.core.genasm_tb import (OP_PAD, window_tb,  # noqa: F401
+                                        window_tb_r)
+
 
 def batched_kernel_align(
     texts: torch.Tensor,

@@ -10,7 +10,8 @@ algorithm, the Edlib baseline.
 On a CUDA device `genasm_distance_batch` resolves to the ``cuda_dc``
 backend (the GenASM-DC kernel in the batched window loop) and
 `myers_distance_batch` launches the Myers kernel; on the CPU both run
-their plain PyTorch versions.
+their plain PyTorch versions.  `genasm_distance` and `myers_distance`
+are the reference's one-pair entry points, each a batch of one.
 """
 from __future__ import annotations
 
@@ -21,6 +22,25 @@ from repro_torch.kernels.myers import myers_distance_batch as _myers_kernel
 
 from .genasm import GenASMConfig
 from .genasm_dc import bitap_search
+# names the reference module binds too
+from .genasm import align  # noqa: F401
+from .myers import myers_distance  # noqa: F401
+
+
+def genasm_distance(a: torch.Tensor, b: torch.Tensor, a_len, b_len, *,
+                    cfg: GenASMConfig = GenASMConfig(),
+                    p_cap: int | None = None) -> torch.Tensor:
+    """Edit distance of one ``a`` (pattern, ``[p]``) vs ``b`` (text,
+    ``[t]``) via windowed GenASM: `genasm_distance_batch`'s path on a
+    batch of one (``cuda_dc`` on a CUDA device).  Returns a 0-d int32
+    tensor, -1 when a window exceeded its threshold."""
+    b = torch.as_tensor(b)
+    a = torch.as_tensor(a, device=b.device)
+    a_lens = torch.as_tensor(a_len, device=b.device).reshape(1)
+    b_lens = torch.as_tensor(b_len, device=b.device).reshape(1)
+    res = align_batch(b[None], a[None], a_lens, b_lens, cfg=cfg, p_cap=p_cap,
+                      emit_cigar=False)
+    return res.distance[0]
 
 
 def genasm_distance_batch(a: torch.Tensor, b: torch.Tensor, a_lens: torch.Tensor,

@@ -6,9 +6,10 @@ per window GenASM-DC generates the intermediate bitvectors and GenASM-TB
 commits up to ``W-O`` characters of traceback; windows repeat until the
 pattern is consumed.
 
-Port of `repro.core.genasm`.  The reference aligns one pair and vmaps;
-here :func:`align` advances a whole batch through its window steps
-together (one ``[B, w]`` DC call per step), which is also the loop
+Port of `repro.core.genasm`.  The reference aligns one pair and vmaps
+(`align_batch`); here :func:`align` itself takes ``[B, ...]`` and
+advances the whole batch through its window steps together (one
+``[B, w]`` DC call per step), which is also the loop
 `repro_torch.align.batched` drives the CUDA kernels through — the two
 differ only in the DC function, so they are bit-identical by
 construction.
@@ -187,3 +188,12 @@ def align(texts: torch.Tensor, patterns: torch.Tensor, p_lens: torch.Tensor,
         text_consumed=fin_t.to(torch.int32),
         failed=failed,
     )
+
+
+def align_batch(texts, patterns, p_lens, t_lens, *,
+                cfg: GenASMConfig = GenASMConfig(),
+                emit_cigar: bool = True) -> AlignResult:
+    """The reference's batched signature over :func:`align`, which is
+    batched already (the reference vmaps its one-pair ``align``)."""
+    return align(texts, patterns, p_lens, t_lens, cfg=cfg,
+                 emit_cigar=emit_cigar)

@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 
 from .bitvector import n_words, ones, pattern_bitmasks, shl1
+# a name the reference module binds too
+from .bitvector import msb  # noqa: F401
 
 # TB-store layout along axis -2: match, insertion, deletion.  The
 # substitution vector is derived as shl1(deletion) (paper §4.6).

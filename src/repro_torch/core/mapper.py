@@ -5,7 +5,11 @@ seeding → GenASM-DC pre-alignment filter (`bitap_search`) over every
 read's candidates → windowed GenASM DC+TB alignment of the best
 candidate, dispatched through `repro_torch.align.align_batch` so every
 registered backend drives the same pipeline.  Both stages run batched
-over the reads on the index's device.
+over the reads on the index's device; `map_read` and `seed_filter_read`
+are the reference's one-read entry points, each a batch of one.
+`repro_torch.align` is imported where it is called, as the reference
+does: the align package imports the graph mapper, which imports this
+module.
 """
 from __future__ import annotations
 
@@ -14,12 +18,10 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch import align as align_dispatch
-
 from .bitvector import SENTINEL, WILDCARD
 from .genasm import GenASMConfig
 from .genasm_dc import bitap_search
-from .minimizer_index import ReferenceIndex
+from .minimizer_index import ReferenceIndex, build_reference_index  # noqa: F401
 from .segram.minimizer import seed_candidates
 
 # lexicographic-selection sentinel: masked-out candidates sort last
@@ -27,6 +29,8 @@ POS_SENTINEL = 2 ** 31 - 1
 
 
 class MapResult(NamedTuple):
+    """A mapped batch: position, distance and packed CIGAR per read."""
+
     position: torch.Tensor  # [B] int32 mapped reference start (-1 if unmapped)
     distance: torch.Tensor  # [B] int32 edit distance (-1 if unmapped)
     ops: torch.Tensor  # [B, cap] packed CIGAR
@@ -35,6 +39,8 @@ class MapResult(NamedTuple):
 
 
 class SeedFilterResult(NamedTuple):
+    """The seed + filter stage's winner per read and its alignment text."""
+
     position: torch.Tensor  # [B] int32 best candidate start (filter-refined)
     prefilter_ok: torch.Tensor  # [B] bool — candidate survived the filter
     text: torch.Tensor  # [B, t_cap] int8 reference region at position
@@ -135,6 +141,28 @@ def seed_filter_rows(ref_buf: torch.Tensor, ref_offset, ref_len: int,
     )
 
 
+def _one(result):
+    """A batch-of-one result without its batch axis."""
+    return type(result)(*(x[0] for x in result))
+
+
+def seed_filter_read(ref_buf: torch.Tensor, ref_offset, ref_len: int,
+                     hashes: torch.Tensor, positions: torch.Tensor,
+                     read: torch.Tensor, read_len, *, p_cap: int, t_cap: int,
+                     filter_bits: int, filter_k: int, max_candidates: int,
+                     minimizer_w: int, minimizer_k: int) -> SeedFilterResult:
+    """Seed + pre-alignment-filter one read against one reference buffer:
+    the reference's per-read signature, as `seed_filter_rows` on a batch
+    of one (``read`` is ``[cap]``, ``read_len`` an int or 0-d tensor)."""
+    read = torch.as_tensor(read, device=ref_buf.device)
+    lens = torch.as_tensor(read_len, device=ref_buf.device).reshape(1)
+    return _one(seed_filter_rows(
+        ref_buf, ref_offset, ref_len, hashes, positions, read[None], lens,
+        p_cap=p_cap, t_cap=t_cap, filter_bits=filter_bits, filter_k=filter_k,
+        max_candidates=max_candidates, minimizer_w=minimizer_w,
+        minimizer_k=minimizer_k))
+
+
 def seed_and_filter_batch(index: ReferenceIndex, reads: torch.Tensor,
                           read_lens: torch.Tensor, *, p_cap: int, t_cap: int,
                           filter_bits: int, filter_k: int, max_candidates: int,
@@ -149,6 +177,8 @@ def seed_and_filter_batch(index: ReferenceIndex, reads: torch.Tensor,
 
 def _finish(sf: SeedFilterResult, read_lens: torch.Tensor, *, cfg, backend,
             p_cap) -> MapResult:
+    from repro_torch import align as align_dispatch
+
     res = align_dispatch.align_batch(
         sf.text, sf.pattern, read_lens.to(torch.int32), sf.t_len,
         cfg=cfg, backend=backend, p_cap=p_cap)
@@ -188,6 +218,14 @@ def map_batch(
         max_candidates=max_candidates, minimizer_w=minimizer_w,
         minimizer_k=minimizer_k)
     return _finish(sf, read_lens, cfg=cfg, backend=backend, p_cap=p_cap)
+
+
+def map_read(index: ReferenceIndex, read, read_len, **kw) -> MapResult:
+    """Map one read: `map_batch` on a batch of one, unbatched (``kw`` as
+    `map_batch` takes them)."""
+    reads = torch.as_tensor(read, device=index.device)[None]
+    lens = torch.as_tensor(read_len, device=index.device).reshape(1)
+    return _one(map_batch(index, reads, lens, **kw))
 
 
 def _sync(dev: torch.device) -> None:

@@ -12,6 +12,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
+
 from .segram.minimizer import build_index
 
 
@@ -26,13 +28,15 @@ class ReferenceIndex(NamedTuple):
 
 
 def index_from_arrays(ref, hashes, positions, *,
-                      device: torch.device | str = "cpu") -> ReferenceIndex:
+                      device: torch.device | str = "cuda") -> ReferenceIndex:
     """A `ReferenceIndex` on ``device`` from host arrays.
 
     ``ref`` int8 bases, ``hashes`` uint32 sorted hashes, ``positions``
     int32 positions — the fields of the reference's ``ReferenceIndex``
-    as ``np.asarray`` gives them.
+    as ``np.asarray`` gives them.  ``device`` defaults to the card (a CUDA
+    device must be visible; pass ``device="cpu"`` for the CPU).
     """
+    device = resolve_device(device)
     return ReferenceIndex(
         ref=torch.as_tensor(np.array(ref, np.int8), device=device),
         hashes=torch.as_tensor(np.asarray(hashes, np.uint32).astype(np.int64),
@@ -44,7 +48,10 @@ def index_from_arrays(ref, hashes, positions, *,
 
 def build_reference_index(ref: np.ndarray, *, w: int = 10, k: int = 15,
                           freq_frac: float = 0.0002,
-                          device: torch.device | str = "cpu") -> ReferenceIndex:
+                          device: torch.device | str = "cuda") -> ReferenceIndex:
+    """Minimizer table and reference bases on ``device`` (the card unless
+    the caller passes ``device="cpu"``)."""
+    device = resolve_device(device)
     idx = build_index(ref, w=w, k=k, freq_frac=freq_frac, device=device)
     return index_from_arrays(ref, idx.hashes, idx.positions, device=device)
 
@@ -91,8 +98,10 @@ class EpochedIndex:
 
 def build_epoched_index(ref: np.ndarray, *, w: int = 10, k: int = 15,
                         freq_frac: float = 0.0002,
-                        device: torch.device | str = "cpu") -> EpochedIndex:
-    """Build a reference index wrapped in an epoch-stamped serving handle."""
+                        device: torch.device | str = "cuda") -> EpochedIndex:
+    """Build a reference index wrapped in an epoch-stamped serving handle
+    (on the card unless the caller passes ``device="cpu"``)."""
+    device = resolve_device(device)
     return EpochedIndex(
         build_reference_index(ref, w=w, k=k, freq_frac=freq_frac, device=device),
         w=w, k=k, freq_frac=freq_frac)

@@ -9,6 +9,8 @@ pattern position ``j`` (LSB = pattern[0]) and 1 = match in ``PEq``.
 
 Supports the global (NW) score and the semi-global search score (min
 over text end positions, free text start), per Hyyrö's formulation.
+`myers_distance` is the reference's one-pair entry point, a batch of one
+through the kernel's wrapper.
 
 Edge cases follow the Pallas kernel: the score bit ``m_len - 1`` lives
 in no word when ``m_len`` is 0 or above ``m_bits``, so the score never
@@ -128,3 +130,19 @@ def myers_distance_batch(texts: torch.Tensor, patterns: torch.Tensor,
         Mv = Ph & Xv
         torch.minimum(best, score, out=best)
     return score if mode == "global" else best
+
+
+def myers_distance(text: torch.Tensor, pattern: torch.Tensor, m_len, *,
+                   m_bits: int, mode: str = "global") -> torch.Tensor:
+    """Myers distance of one pair: ``text [n]``, ``pattern [m_bits]``
+    (wildcard-padded), ``m_len`` its real length.  A batch of one through
+    `repro_torch.kernels.myers.myers_distance_batch` (the CUDA kernel on a
+    CUDA tensor, `myers_distance_batch` here on a CPU tensor); returns a
+    0-d int32 tensor."""
+    from repro_torch.kernels.myers import myers_distance_batch as kernel
+
+    text = torch.as_tensor(text)
+    pattern = torch.as_tensor(pattern, device=text.device)
+    m_lens = torch.as_tensor(m_len, device=text.device).reshape(1)
+    return kernel(text[None], pattern[None], m_lens, m_bits=m_bits,
+                  mode=mode)[0]

@@ -27,6 +27,8 @@ import torch
 
 from ..bitvector import (ALL_ONES, WORD_BITS, n_words, pattern_bitmasks, shl1,
                          to_i32)
+# a name the reference module binds too
+from ..bitvector import get_bit, msb, ones  # noqa: F401
 from ..genasm_dc import first_match_distance
 from ..genasm_tb import OP_D, OP_I, OP_M, OP_PAD, OP_X
 from .graph import HOP_LIMIT

@@ -18,6 +18,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
+
 MASK32 = 0xFFFFFFFF
 INVALID = MASK32  # code/hash of a k-mer touching a non-ACGT char
 _NO_DIAG = -(2 ** 30)
@@ -93,12 +95,14 @@ class MinimizerIndex(NamedTuple):
 
 def build_index(ref: np.ndarray, *, w: int = 10, k: int = 15,
                 freq_frac: float = 0.0002,
-                device: torch.device | str = "cpu") -> MinimizerIndex:
+                device: torch.device | str = "cuda") -> MinimizerIndex:
     """Offline index construction (paper §6.5) with frequency filtering.
 
-    Sampling runs on ``device``; the sort and the frequency filter run in
-    numpy, as in the reference.
+    Sampling runs on ``device`` (the card unless the caller passes
+    ``device="cpu"``); the sort and the frequency filter run in numpy, as
+    in the reference.
     """
+    device = resolve_device(device)
     is_min, h = minimizers(torch.as_tensor(np.asarray(ref, np.int8), device=device),
                            w=w, k=k)
     is_min = is_min.cpu().numpy()

@@ -16,9 +16,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
+
 from .bitalign import bitalign_dc, bitalign_tb
 from .graph import HOP_LIMIT, GenomeGraph, hop_boundary_mask
-from .minimizer import build_index, seed_candidates
+from .minimizer import MinimizerIndex, build_index, seed_candidates  # noqa: F401
 
 
 class SeGraMIndex(NamedTuple):
@@ -33,21 +35,13 @@ class SeGraMIndex(NamedTuple):
         return self.bases.device
 
 
-def _resolve_device(device: torch.device | str) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device}: no CUDA device is visible; pass "
-                           f"device='cpu' to run the plain PyTorch path")
-    return device
-
-
 def index_from_arrays(bases, succ_bits, node_of_backbone, idx_hashes,
                       idx_positions, *,
-                      device: torch.device | str = "cpu") -> SeGraMIndex:
+                      device: torch.device | str = "cuda") -> SeGraMIndex:
     """A `SeGraMIndex` on ``device`` from host arrays — the fields of the
     reference's ``SeGraMIndex`` as ``np.asarray`` gives them (uint32
     hopBits and hashes, int32 node ids and positions)."""
-    device = _resolve_device(device)
+    device = resolve_device(device)
     u32 = np.asarray(succ_bits).astype(np.uint32)
     return SeGraMIndex(
         bases=torch.as_tensor(np.array(bases, np.int8), device=device),
@@ -65,7 +59,7 @@ def preprocess(ref: np.ndarray, g: GenomeGraph, *, w: int = 10, k: int = 15,
                device: torch.device | str = "cuda") -> SeGraMIndex:
     """Offline pre-processing (paper §6.5): graph arrays + minimizer index
     on ``device`` (a CUDA device must exist when one is asked for)."""
-    device = _resolve_device(device)
+    device = resolve_device(device)
     idx = build_index(ref, w=w, k=k, device=device)
     return index_from_arrays(g.bases, g.succ_bits, g.node_of_backbone,
                              idx.hashes, idx.positions, device=device)

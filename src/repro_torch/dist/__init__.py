@@ -5,3 +5,4 @@
   and DTensor placements; ``shard_put``, ``constrain_activations``.
 * ``fault`` — the work queue, the heartbeat and the restartable loop.
 """
+from . import fault, sharding  # noqa: F401

@@ -54,7 +54,7 @@ def device_putter(device):
     """numpy -> tensor on ``device``: through pinned memory and a
     non-blocking copy on a CUDA device (the copy is ordered on the
     device's current stream, before the consumer's kernels)."""
-    from repro_torch.models.model_zoo import resolve_device
+    from repro_torch._device import resolve_device
 
     dev = resolve_device(device)
     if dev.type != "cuda":

@@ -28,6 +28,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core.bitvector import SENTINEL
 from repro_torch.core.filter import QGRAM_Q, qgram_bloom
 from repro_torch.core.segram.graph import (GenomeGraph, Variant, build_graph,
@@ -176,15 +177,17 @@ def build_graph_index(
     tile_stride: int = DEFAULT_STRIDE,
     margin: int = DEFAULT_MARGIN,
     graph: GenomeGraph | None = None,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> GraphIndex:
     """Offline pre-processing (paper §6.5): graph + minimizers + tiles.
 
     The graph is built on the host; minimizer sampling, tiles and Bloom
-    filters on ``device``.  ``window`` must cover the largest alignment
-    text cap the mapper will slice (``p_cap + 2·cfg.w``);
+    filters on ``device`` (the card unless the caller passes
+    ``device="cpu"``).  ``window`` must cover the largest alignment text
+    cap the mapper will slice (``p_cap + 2·cfg.w``);
     `repro_torch.graph.mapper` checks.
     """
+    device = resolve_device(device)
     g = graph if graph is not None else build_graph(ref, list(variants))
     idx = build_index(ref, w=w, k=k, freq_frac=freq_frac, device=device)
     tile_len = tile_stride + margin + window
@@ -200,7 +203,7 @@ def build_graph_index(
 def graph_index_from_arrays(ref, arrays, *, tile_len: int, tile_stride: int,
                             minimizer_w: int, minimizer_k: int, window: int,
                             margin: int,
-                            device: torch.device | str = "cpu") -> GraphIndex:
+                            device: torch.device | str = "cuda") -> GraphIndex:
     """A `GraphIndex` on ``device`` from an index built elsewhere.
 
     ``arrays`` has the fields of the reference's ``GraphArrays`` as
@@ -208,6 +211,7 @@ def graph_index_from_arrays(ref, arrays, *, tile_len: int, tile_stride: int,
     their int32 bit patterns).  Every field is carried over as given,
     tiles, Bloom words and slack included.
     """
+    device = resolve_device(device)
     return GraphIndex(
         arrays=GraphArrays(**{
             name: _to_device(getattr(arrays, name), name, device)
@@ -289,9 +293,10 @@ def save_graph_index(path: str | Path, gidx: GraphIndex) -> None:
 
 
 def load_graph_index(path: str | Path,
-                     device: torch.device | str = "cpu") -> GraphIndex:
+                     device: torch.device | str = "cuda") -> GraphIndex:
     """Read an npz written by `save_graph_index` (or by the reference's
     `repro.graph.index.save_graph_index`) onto ``device``."""
+    device = resolve_device(device)
     with np.load(path) as z:
         tile_len, tile_stride, w, k, window, margin = (
             int(x) for x in z["meta"])

@@ -36,6 +36,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch import align as align_dispatch
+from repro_torch._device import resolve_device
 from repro_torch.core import filter as qfilter
 from repro_torch.core.bitvector import WILDCARD
 from repro_torch.core.genasm import GenASMConfig, slice_windows
@@ -389,9 +390,11 @@ def align_winners(stage: CandidateStageResult, reads: torch.Tensor,
 
 
 def unmapped_result(b: int, *, cfg: GenASMConfig, p_cap: int,
-                    device: torch.device | str = "cpu") -> GraphMapResult:
+                    device: torch.device | str = "cuda") -> GraphMapResult:
     """The canonical all-failed batch: what `align_winners` emits for a
-    failed read, at the ops/path widths an align call would produce."""
+    failed read, at the ops/path widths an align call would produce, on
+    ``device`` (the card unless the caller passes ``device="cpu"``)."""
+    device = resolve_device(device)
     cap = cfg.ops_cap(p_cap)
     return GraphMapResult(
         position=torch.full((b,), -1, dtype=torch.int32, device=device),
@@ -512,6 +515,14 @@ class GraphMapExecutor:
         return res
 
 
+def get_map_executor(**kw) -> GraphMapExecutor:
+    """A `GraphMapExecutor` for one static-parameter set (``kw`` as its
+    constructor takes them).  The reference caches one per set because
+    its stages compile; eager PyTorch compiles nothing, so each call
+    builds one."""
+    return GraphMapExecutor(**kw)
+
+
 def map_batch(garr: GraphArrays, reads, read_lens, *, tile_stride: int,
               cfg: GenASMConfig = GenASMConfig(), p_cap: int = 256,
               filter_bits: int = 128, filter_k: int = 12,
@@ -526,7 +537,7 @@ def map_batch(garr: GraphArrays, reads, read_lens, *, tile_stride: int,
     toggles the q-gram tile screen (None: the ``REPRO_GRAPH_PREFILTER``
     default, on unless "0"); results are bitwise identical either way.
     """
-    return GraphMapExecutor(
+    return get_map_executor(
         tile_stride=tile_stride, cfg=cfg, p_cap=p_cap,
         filter_bits=filter_bits, filter_k=filter_k,
         max_candidates=max_candidates, minimizer_w=minimizer_w,

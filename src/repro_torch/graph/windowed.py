@@ -26,6 +26,8 @@ import torch
 
 from repro_torch.core.bitvector import (ALL_ONES, SENTINEL, get_bit,
                                         pattern_bitmasks)
+# a name the reference module binds too
+from repro_torch.core.bitvector import msb, n_words, ones, shl1  # noqa: F401
 from repro_torch.core.genasm import (AlignResult, GenASMConfig, pad_pattern,
                                      slice_windows, window_commit)
 from repro_torch.core.genasm_tb import OP_D, OP_I, OP_M, OP_PAD, OP_X

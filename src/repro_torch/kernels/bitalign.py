@@ -25,6 +25,9 @@ import torch
 
 from repro_torch.core.bitvector import WORD_BITS
 from repro_torch.core.segram.bitalign import bitalign_rows
+# names the reference module binds too
+from repro_torch.core.bitvector import NUM_CHARS  # noqa: F401
+from repro_torch.core.segram.graph import HOP_LIMIT  # noqa: F401
 
 from . import _build
 

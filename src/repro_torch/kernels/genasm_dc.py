@@ -16,6 +16,8 @@ import torch
 
 from repro_torch.core import genasm_dc as _core
 from repro_torch.core.bitvector import WORD_BITS
+# a name the reference module binds too
+from repro_torch.core.bitvector import NUM_CHARS  # noqa: F401
 
 from . import _build
 

@@ -25,6 +25,8 @@ import torch
 
 from repro_torch.core import myers as _plain
 from repro_torch.core.bitvector import WORD_BITS
+# a name the reference module binds too
+from repro_torch.core.bitvector import NUM_CHARS  # noqa: F401
 
 from . import _build
 

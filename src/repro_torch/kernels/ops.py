@@ -12,6 +12,11 @@ This module plays the role of the reference's `repro.kernels.ref` (the
 pure-jnp oracle of every Pallas kernel): each entry's ``plain`` is its
 kernel's oracle, and on a CPU tensor the wrapper runs it.  The port has
 no ``kernels/ref.py`` of its own.
+
+`window_dc`, `window_dc_v2`, `myers_distance` and `bitalign_dc` are the
+reference's public wrappers (`repro.kernels.ops`), with its arguments
+and shapes less the Pallas batch tile (``block_bt``): each is one call
+to the wrapper that `KERNELS` names, which needs no padding to a tile.
 """
 from __future__ import annotations
 
@@ -32,6 +37,8 @@ from .myers import myers_distance_batch
 
 
 class Kernel(NamedTuple):
+    """One port kernel: its wrapper, plain version, sources and inputs."""
+
     name: str
     wrapper: Callable
     plain: Callable
@@ -115,7 +122,42 @@ KERNELS = (
 )
 
 
+def window_dc(sub_texts, sub_patterns, *, w: int = 64, k: int = 24,
+              squeeze: bool = False):
+    """GenASM-DC over a batch of windows (`window_dc_batch`).
+
+    ``sub_texts``/``sub_patterns``: ``[B, w]`` int8.  Returns ``(d_min
+    [B], tb [B, w, k+1, 3, nw])``; ``squeeze=True`` drops a leading
+    singleton batch.
+    """
+    d, tb = window_dc_batch(sub_texts, sub_patterns, w=w, k=k)
+    return (d[0], tb[0]) if squeeze else (d, tb)
+
+
+def myers_distance(texts, patterns, m_lens, *, m_bits: int,
+                   mode: str = "global"):
+    """Batched Myers edit distance (`myers_distance_batch`): ``[B]`` int32."""
+    return myers_distance_batch(texts, patterns, m_lens, m_bits=m_bits,
+                                mode=mode)
+
+
+def window_dc_v2(sub_texts, sub_patterns, *, w: int = 64, k: int = 24,
+                 squeeze: bool = False):
+    """The v2 kernel, R-only TB store (`window_dc_batch_v2`): ``(d_min
+    [B], R [B, w+1, k+1, nw])``, ``squeeze`` as `window_dc`."""
+    d, r = window_dc_batch_v2(sub_texts, sub_patterns, w=w, k=k)
+    return (d[0], r[0]) if squeeze else (d, r)
+
+
+def bitalign_dc(bases, succ_bits, patterns, p_lens, *, m_bits: int, k: int):
+    """Batched BitAlign DC with its R store (`bitalign_dc_batch`):
+    ``(dists [B, N], R [B, N, k+1, nw])``."""
+    return bitalign_dc_batch(bases, succ_bits, patterns, p_lens,
+                             m_bits=m_bits, k=k, store_r=True)
+
+
 def reset_launch_counts() -> None:
+    """Set every wrapper's launch count (and BitAlign's by store) to 0."""
     for kern in KERNELS:
         kern.wrapper.launches = 0
     for key in bitalign_dc_batch.launches_by_store:
@@ -123,4 +165,5 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict[str, int]:
+    """Each kernel's launches since `reset_launch_counts`, by name."""
     return {kern.name: kern.wrapper.launches for kern in KERNELS}

@@ -51,7 +51,7 @@ def word_ops_chain(mix: str, n: int, threads: int, *,
     if n < 0 or n % 2 or threads <= 0:
         raise ValueError(f"need an even n >= 0 and threads > 0, got {n}, "
                          f"{threads}")
-    from repro_torch.models.model_zoo import resolve_device
+    from repro_torch._device import resolve_device
 
     dev = resolve_device(device)
     if dev.type != "cuda":

@@ -104,14 +104,26 @@ from repro_torch.dist import sharding as shd
 from repro_torch.launch import rank_trace
 from repro_torch.launch import roofline as rf
 from repro_torch.launch.mesh import fake_production_mesh, production_shape
+# a name the reference module binds too
+from repro_torch.launch.mesh import make_production_mesh  # noqa: F401
 from repro_torch.models import model_zoo
 from repro_torch.train import loop as train_loop
 from repro_torch.train import optimizer as opt_mod
 from repro_torch.train import serve as serve_mod
 
+DOC = __doc__  # the reference keeps this text under that name
 RESULTS = Path(__file__).resolve().parents[3] / "dryrun_results_torch.json"
 HBM_BYTES = 80e9  # one H100's 80 GB
 LOOP_SEQ = 256  # a train or prefill step's tokens where a slot loops over time
+
+
+def shardify(mesh, spec_tree):
+    """Each spec of a ``{name: spec}`` tree (nested dicts allowed) as its
+    DTensor placements on ``mesh``: the port's form of the reference's
+    tree of ``NamedSharding``."""
+    if isinstance(spec_tree, dict):
+        return {k: shardify(mesh, v) for k, v in spec_tree.items()}
+    return shd.placements(spec_tree, mesh)
 
 
 def microbatches_for(cfg, shape) -> int:
@@ -402,7 +414,8 @@ def cell_ok(rec: dict) -> bool:
 
 
 def main(argv=None, *, results: Path = RESULTS) -> dict:
-    ap = argparse.ArgumentParser()
+    ap = argparse.ArgumentParser(
+        description=DOC, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--all", action="store_true")

@@ -19,7 +19,8 @@ from pathlib import Path
 from repro_torch.launch.dryrun import RESULTS
 
 
-def fmt_gb(b) -> str:
+def fmt_bytes(b) -> str:
+    """Bytes as GB with one decimal."""
     return f"{b / 1e9:.1f}"
 
 
@@ -42,17 +43,17 @@ def dryrun_table(res: dict) -> str:
         elif "measured" in m and m["measured"]:
             me, c = m["measured"], r["collectives"]
             sh = [f"{sharded['lower_s']:.2f}",
-                  fmt_gb(me["peak_bytes_full_depth_est"]),
+                  fmt_bytes(me["peak_bytes_full_depth_est"]),
                   fit_word(me["fits_measured"]), f"{c['n_ops']:.0f}",
-                  fmt_gb(c["link_bytes"]), fmt_gb(c["cross_pod_bytes"])]
+                  fmt_bytes(c["link_bytes"]), fmt_bytes(c["cross_pod_bytes"])]
         else:
             sh = ["—"] * 6
         rows.append(
             f"| {r['arch']}×{r['shape']} | {r['mesh']} | {r['chips']} | "
             f"{r['lower_s']:.2f} ({lower_cut(r)}) | {sh[0]} | "
-            f"{fmt_gb(m['param_bytes'])} | {fmt_gb(m['opt_bytes'])} | "
-            f"{fmt_gb(m['batch_bytes'] + m['state_bytes'])} | "
-            f"{fmt_gb(m['per_device_total'])} | {'yes' if m['fits'] else 'no'} | "
+            f"{fmt_bytes(m['param_bytes'])} | {fmt_bytes(m['opt_bytes'])} | "
+            f"{fmt_bytes(m['batch_bytes'] + m['state_bytes'])} | "
+            f"{fmt_bytes(m['per_device_total'])} | {'yes' if m['fits'] else 'no'} | "
             + " | ".join(sh[1:]) + " |")
     return "\n".join(rows)
 
@@ -113,8 +114,8 @@ def multi_table(res: dict) -> str:
             continue
         rows.append(
             f"| {r['arch']}×{r['shape']} | "
-            f"{fmt_gb(r['memory']['per_device_total'])} | "
-            f"{fmt_gb(m['memory']['per_device_total'])} | "
+            f"{fmt_bytes(r['memory']['per_device_total'])} | "
+            f"{fmt_bytes(m['memory']['per_device_total'])} | "
             f"{m['analytic']['collective_s']:.2e} |")
     return "\n".join(rows)
 

@@ -29,6 +29,8 @@ import torch
 from repro_torch.ckpt.checkpoint import CheckpointManager
 from repro_torch.configs import get_config
 from repro_torch.configs.base import reduced
+# a name the reference module binds too
+from repro_torch.configs.base import ShapeConfig  # noqa: F401
 from repro_torch.dist.fault import Heartbeat
 from repro_torch.models import model_zoo
 from repro_torch.train import loop as train_loop

@@ -16,6 +16,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .layers import EMBED, HEADS, KV_HEADS, apply_rope, dense_init, holder
+# a name the reference module binds too
+from .layers import COMPUTE_DTYPE  # noqa: F401
 
 NEG_INF = -1e30
 

@@ -20,7 +20,7 @@ def synth_frontend_embeds(cfg, batch: int, length: int | None = None,
                           seed: int = 0, *, device="cuda"):
     """Random stub embeddings on ``device`` (``cuda`` raises without a
     card; pass ``device="cpu"``)."""
-    from .model_zoo import resolve_device
+    from repro_torch._device import resolve_device
 
     device = resolve_device(device)
     shape = frontend_embed_shape(cfg, batch, length)

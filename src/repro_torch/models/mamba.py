@@ -17,6 +17,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .layers import COMPUTE_DTYPE, EMBED, MLP, dense_init, holder
+# a name the reference module binds too
+from .layers import STATE  # noqa: F401
 
 
 def mamba_init(cfg, *, generator=None, device=None):

@@ -15,23 +15,16 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from . import encdec, transformer
+# a name the reference module binds too
+from .frontends import frontend_embed_shape  # noqa: F401
 from .layers import COMPUTE_DTYPE, chunked_logits_xent
 
 
 def is_encdec(cfg: ModelConfig) -> bool:
     return cfg.enc_layers > 0
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device(device)``, raising when it names CUDA and no card is
-    visible (no silent CPU fallback)."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device}: no CUDA device is visible; "
-                           "pass device='cpu' to run on the CPU")
-    return dev
 
 
 def model_class(cfg: ModelConfig) -> type:

@@ -30,6 +30,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .layers import EMBED, EXPERT, MLP, dense_init, holder
+# a name the reference module binds too
+from .layers import COMPUTE_DTYPE  # noqa: F401
 
 # dispatch-group size in tokens: the reference's constant, read at call time
 MOE_CHUNK_TOKENS = 16_384

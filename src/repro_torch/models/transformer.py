@@ -27,6 +27,8 @@ from . import moe as moe_mod
 from . import rwkv6 as rk
 from .layers import (COMPUTE_DTYPE, apply_norm, dense_init, embed_init,
                      holder, make_norm, mlp_apply, mlp_init)
+# a name the reference module binds too
+from .layers import EMBED, VOCAB  # noqa: F401
 
 # int8 KV cache (per-position, per-head symmetric scales), the reference's
 # module flag of the same name: read by ``decode_state_init``
@@ -85,12 +87,22 @@ def _slot_apply(cfg, p, x, positions, kind, aux, mesh):
     return x + as_residual(m, x), aux
 
 
+# the reference's opt-in knob, off there and here: a checkpoint per slot
+# inside a multi-slot block (its note: jamba train_4k's temp memory grew
+# 63 -> 72.6 GB/device with it on)
+NESTED_SLOT_REMAT = False
+
+
 def block_apply(cfg, bp, x, positions, mesh=None):
     """One block: (x, the block's aux loss fp32)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    nested = NESTED_SLOT_REMAT and len(cfg.pattern) > 1
     for i, kind in enumerate(cfg.pattern):
-        x, aux = _slot_apply(cfg, getattr(bp, f"slot{i}"), x, positions,
-                             kind, aux, mesh)
+        args = (cfg, getattr(bp, f"slot{i}"), x, positions, kind, aux, mesh)
+        if nested and torch.is_grad_enabled():
+            x, aux = checkpoint(_slot_apply, *args, use_reentrant=False)
+        else:
+            x, aux = _slot_apply(*args)
     return x, aux
 
 

@@ -34,7 +34,7 @@ The reference's ``predict_block_bt`` ranks Pallas batch tiles with
 has no counterpart here.
 
 Stdlib-only at import time (the `repro_torch.obs` contract): `torch`,
-`repro_torch.align` and `model_zoo.resolve_device` (a CUDA device must
+`repro_torch.align` and `repro_torch._device` (a CUDA device must
 be visible: every default device is ``cuda``) are imported lazily inside
 `DeviceSpec.for_device` and the measured-side helpers.
 """
@@ -118,7 +118,7 @@ class DeviceSpec:
 
 
 def _resolve(device):
-    from repro_torch.models.model_zoo import resolve_device
+    from repro_torch._device import resolve_device
 
     return resolve_device(device)
 

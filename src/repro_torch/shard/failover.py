@@ -45,7 +45,11 @@ from . import merge as shard_merge
 from .graph_mapper import get_graph_executor
 from .graph_partition import EpochedShardedGraphIndex
 from .mapper import ShardStageResult, get_executor, sync, to_host
+# a name the reference module binds too
+from .graph_partition import GraphShardArrays  # noqa: F401
 from .partition import EpochedShardedIndex
+# a name the reference module binds too
+from .partition import ShardArrays  # noqa: F401
 
 
 def _run_shard_queue(s, *, esi, lease_s, max_attempts, fault_hook, tr,
@@ -249,7 +253,8 @@ def map_batch_with_failover_graph(
     n_cap = tile_rung(max(screened[i][2] for i in range(s)),
                       b * shard_candidates)
     if n_cap == 0:
-        return unmapped_result(b, cfg=cfg, p_cap=p_cap)
+        # on the host, as the sharded executor's all-pruned batch
+        return unmapped_result(b, cfg=cfg, p_cap=p_cap, device="cpu")
 
     def candidates_one(item):
         cur, _ = esi.current()

@@ -28,6 +28,8 @@ import torch
 from repro_torch.core.genasm import GenASMConfig
 from repro_torch.core.mapper import POS_SENTINEL
 from repro_torch.core.segram.graph import HOP_LIMIT
+# a name the reference module binds too
+from repro_torch.dist import sharding as dist_sharding  # noqa: F401
 from repro_torch.graph.mapper import (CandidateStageResult, GraphMapResult,
                                       GraphView, TilePrefilterResult,
                                       _env_prefilter, align_winners,
@@ -37,6 +39,8 @@ from repro_torch.graph.mapper import (CandidateStageResult, GraphMapResult,
 
 from . import merge as shard_merge
 from .graph_partition import ShardedGraphIndex
+# a name the reference module binds too
+from .graph_partition import GraphShardArrays  # noqa: F401
 from .mapper import (PendingBatch, finish_pending, join_rows, split_rows,
                      sync)
 
@@ -228,7 +232,8 @@ class ShardedGraphMapExecutor:
         self.last_stats = stats
         times = [("prefilter", t0, t1, {"shards": self.num_shards})]
         if n_cap == 0:
-            res = unmapped_result(b, cfg=self.cfg, p_cap=self.p_cap)
+            res = unmapped_result(b, cfg=self.cfg, p_cap=self.p_cap,
+                                  device="cpu")  # on the host, as documented
             return PendingBatch(res=res, times=tuple(times), t_dispatch=t1,
                                 tail=None, stats=stats)
         t2 = time.monotonic()

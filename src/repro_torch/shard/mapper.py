@@ -47,9 +47,13 @@ from repro_torch.core import mapper as core_mapper
 from repro_torch.core.bitvector import WILDCARD
 from repro_torch.core.genasm import GenASMConfig
 from repro_torch.core.mapper import MapResult, POS_SENTINEL
+# a name the reference module binds too
+from repro_torch.dist import sharding as dist_sharding  # noqa: F401
 
 from . import merge as shard_merge
 from .partition import ShardedIndex
+# a name the reference module binds too
+from .partition import ShardArrays  # noqa: F401
 
 
 class ShardStageResult(NamedTuple):

@@ -36,6 +36,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core.bitvector import SENTINEL
 from repro_torch.core.minimizer_index import EpochedIndex, ReferenceIndex
 from repro_torch.core.segram.minimizer import build_index
@@ -54,11 +55,7 @@ def resolve_devices(spec: str, num_shards: int) -> tuple[torch.device, ...]:
     .. ``cuda:{S-1}``.  Any other single device holds every shard.  A
     CUDA device must be visible: nothing falls back to the CPU.
     """
-    devices = tuple(torch.device(d.strip()) for d in spec.split(","))
-    if any(d.type == "cuda" for d in devices) and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"--device {spec}: no CUDA device is visible; pass --device cpu "
-            f"to run the plain PyTorch path on the CPU")
+    devices = tuple(resolve_device(d.strip()) for d in spec.split(","))
     if len(devices) > 1:
         if len(devices) != num_shards:
             raise ValueError(f"--device lists {len(devices)} devices for "
@@ -282,10 +279,11 @@ def build_sharded_index(
     halo: int = DEFAULT_HALO,
     hashes: np.ndarray | None = None,
     positions: np.ndarray | None = None,
-    devices: Sequence[torch.device | str] = ("cpu",),
+    devices: Sequence[torch.device | str] = ("cuda",),
 ) -> ShardedIndex:
     """Partition a reference (and its global minimizer table) into shards
-    placed on ``devices`` (one device, or one per shard).
+    placed on ``devices`` (one device, or one per shard; the card unless
+    the caller passes ``("cpu",)``).
 
     The minimizer table is built globally (global frequency filter, as
     in the paper's offline pre-processing) unless an existing global
@@ -294,7 +292,7 @@ def build_sharded_index(
     from literally the same entries.
     """
     ref = np.asarray(ref, np.int8)
-    devices = tuple(torch.device(d) for d in devices)
+    devices = tuple(resolve_device(d) for d in devices)
     layout = plan_layout(len(ref), num_shards, halo)
     if hashes is None or positions is None:
         idx = build_index(ref, w=w, k=k, freq_frac=freq_frac,

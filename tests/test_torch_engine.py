@@ -28,7 +28,7 @@ def data():
 
 def test_engine_matches_map_batch_and_routes_buckets(data):
     ref, reads = data
-    epi = minimizer_index.build_epoched_index(ref, w=8, k=12)
+    epi = minimizer_index.build_epoched_index(ref, w=8, k=12, device="cpu")
     with ServeEngine(epi, CFG) as engine:
         got = engine.map_all(reads)
         assert engine.n_executors == 2  # one per bucket rung in use
@@ -48,7 +48,7 @@ def test_engine_matches_map_batch_and_routes_buckets(data):
 
 def test_result_cache_hits_and_epoch_refresh(data):
     ref, reads = data
-    epi = minimizer_index.build_epoched_index(ref, w=8, k=12)
+    epi = minimizer_index.build_epoched_index(ref, w=8, k=12, device="cpu")
     with ServeEngine(epi, CFG) as engine:
         first = Session(engine)
         first.submit(reads[0], meta="a")
@@ -64,14 +64,14 @@ def test_result_cache_hits_and_epoch_refresh(data):
 
 def test_engine_rejects_mismatched_minimizers(data):
     ref, _ = data
-    epi = minimizer_index.build_epoched_index(ref, w=10, k=15)
+    epi = minimizer_index.build_epoched_index(ref, w=10, k=15, device="cpu")
     with pytest.raises(ValueError, match="minimizer"):
         ServeEngine(epi, CFG)
 
 
 def test_bare_reference_index_is_wrapped(data):
     ref, reads = data
-    idx = minimizer_index.build_reference_index(ref, w=8, k=12)
+    idx = minimizer_index.build_reference_index(ref, w=8, k=12, device="cpu")
     with ServeEngine(idx, CFG) as engine:
         res = engine.submit(reads[1]).result()
         assert engine.device == torch.device("cpu")
@@ -80,7 +80,7 @@ def test_bare_reference_index_is_wrapped(data):
 
 def test_worker_error_reaches_every_future(data, monkeypatch):
     ref, reads = data
-    epi = minimizer_index.build_epoched_index(ref, w=8, k=12)
+    epi = minimizer_index.build_epoched_index(ref, w=8, k=12, device="cpu")
 
     def boom(*a, **kw):
         raise RuntimeError("executor failed")

@@ -144,7 +144,7 @@ def test_popcount32(rng):
 def indexes(ref_and_variants):
     ref, variants = ref_and_variants
     want = jindex.build_graph_index(ref, variants, **INDEX_KW)
-    got = tindex.build_graph_index(ref, variants, **INDEX_KW)
+    got = tindex.build_graph_index(ref, variants, **INDEX_KW, device="cpu")
     return want, got
 
 
@@ -182,13 +182,13 @@ def test_index_carried_across_and_npz(tmp_path, indexes):
         want.ref, jindex.GraphArrays(*(np.asarray(x) for x in want.arrays)),
         tile_len=want.tile_len, tile_stride=want.tile_stride,
         minimizer_w=want.minimizer_w, minimizer_k=want.minimizer_k,
-        window=want.window, margin=want.margin)
+        window=want.window, margin=want.margin, device="cpu")
     assert_index_equal(carried, want)
     jpath, tpath = tmp_path / "j.npz", tmp_path / "t.npz"
     jindex.save_graph_index(jpath, want)
-    assert_index_equal(tindex.load_graph_index(jpath), want)
+    assert_index_equal(tindex.load_graph_index(jpath, device="cpu"), want)
     tindex.save_graph_index(tpath, got)
-    assert_index_equal(tindex.load_graph_index(tpath), want)
+    assert_index_equal(tindex.load_graph_index(tpath, device="cpu"), want)
     back = jindex.load_graph_index(tpath)  # the reference reads the port's
     for name in jindex.GraphArrays._fields:
         np.testing.assert_array_equal(np.asarray(getattr(back.arrays, name)),
@@ -199,7 +199,7 @@ def test_index_carried_across_and_npz(tmp_path, indexes):
 def test_epoched_graph_index_refresh(ref_and_variants):
     ref, variants = ref_and_variants
     epi = tindex.build_epoched_graph_index(ref[:1000], variants[:3],
-                                           **INDEX_KW)
+                                           **INDEX_KW, device="cpu")
     old, epoch = epi.current()
     assert epi.refresh(ref) == epoch + 1
     new, _ = epi.current()

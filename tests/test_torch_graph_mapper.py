@@ -37,7 +37,7 @@ def setup():
                                           seed=42)
     kw = dict(w=8, k=12, window=T_CAP)
     jidx = jindex.build_graph_index(ref, variants, **kw)
-    tidx = tindex.build_graph_index(ref, variants, **kw)
+    tidx = tindex.build_graph_index(ref, variants, **kw, device="cpu")
     rng = np.random.default_rng(43)
     reads = []
     for i in range(10):
@@ -101,10 +101,10 @@ def test_carried_and_npz_indexes_serve_the_same(setup, reference, tmp_path):
         jidx.ref, jindex.GraphArrays(*(np.asarray(x) for x in jidx.arrays)),
         tile_len=jidx.tile_len, tile_stride=jidx.tile_stride,
         minimizer_w=jidx.minimizer_w, minimizer_k=jidx.minimizer_k,
-        window=jidx.window, margin=jidx.margin)
+        window=jidx.window, margin=jidx.margin, device="cpu")
     path = tmp_path / "g.npz"
     jindex.save_graph_index(path, jidx)
-    for gidx in (carried, tindex.load_graph_index(path)):
+    for gidx in (carried, tindex.load_graph_index(path, device="cpu")):
         got = tmapper.map_batch_index(gidx, arr, lens, backend="graph_torch",
                                       cfg=GenASMConfig(), prefilter=True,
                                       **{k: v for k, v in MAP_KW.items()
@@ -122,7 +122,8 @@ def test_zero_survivor_batch_short_circuits(setup):
     got = ex(tidx.arrays, arr, lens)
     assert ex.last_stats["tiles_kept"] == 0
     assert [name for name, *_ in ex.last_times] == ["prefilter"]
-    want = tmapper.unmapped_result(3, cfg=GenASMConfig(), p_cap=P_CAP)
+    want = tmapper.unmapped_result(3, cfg=GenASMConfig(), p_cap=P_CAP,
+                                   device="cpu")
     for name in RESULT_FIELDS:
         assert torch.equal(getattr(got, name), getattr(want, name)), name
 
@@ -170,7 +171,7 @@ def test_engine_graph_workload(setup, reference):
     assert m["graph_candidate_slots"] == m["batches_flushed"] * 4 * 4
     assert {"stage_prefilter_s", "stage_dc_filter_s", "stage_align_s"} <= set(m)
 
-    epi = minimizer_index.build_epoched_index(ref, w=8, k=12)
+    epi = minimizer_index.build_epoched_index(ref, w=8, k=12, device="cpu")
     with pytest.raises(TypeError, match="GraphIndex"):
         ServeEngine(epi, cfg)
     with pytest.raises(ValueError, match="workload"):

@@ -80,7 +80,7 @@ def test_minimizers(rng, w, k):
 def test_build_index(ref_fn):
     ref = ref_fn()
     want = jmin.build_index(ref, w=8, k=12, freq_frac=0.01)
-    got = tmin.build_index(ref, w=8, k=12, freq_frac=0.01)
+    got = tmin.build_index(ref, w=8, k=12, freq_frac=0.01, device="cpu")
     np.testing.assert_array_equal(got.hashes, want.hashes)
     np.testing.assert_array_equal(got.positions, want.positions)
     assert got.freq_cap == want.freq_cap
@@ -89,7 +89,7 @@ def test_build_index(ref_fn):
 def test_seed_candidates_with_ties():
     ref = duplicated_reference(6)
     jidx = jindex.build_reference_index(ref, w=8, k=12)
-    tidx = tindex.build_reference_index(ref, w=8, k=12)
+    tidx = tindex.build_reference_index(ref, w=8, k=12, device="cpu")
     rs = simulate.simulate_reads(ref, n_reads=10, read_len=120,
                                  profile=simulate.ILLUMINA, seed=4)
     reads, _ = encode.batch_reads(rs.reads, 128)
@@ -132,7 +132,7 @@ def assert_map_equal(got, want):
 def test_seed_and_filter_batch():
     ref, reads, lens = mapper_inputs()
     jidx = jindex.build_reference_index(ref, w=8, k=12)
-    tidx = tindex.build_reference_index(ref, w=8, k=12)
+    tidx = tindex.build_reference_index(ref, w=8, k=12, device="cpu")
     kw = dict(p_cap=192, t_cap=192 + 128, filter_bits=128, filter_k=16,
               max_candidates=4, minimizer_w=8, minimizer_k=12)
     want = jmapper.seed_and_filter_batch(jidx, jnp.asarray(reads),
@@ -146,7 +146,7 @@ def test_seed_and_filter_batch():
 def test_map_batch(backend):
     ref, reads, lens = mapper_inputs()
     jidx = jindex.build_reference_index(ref, w=8, k=12)
-    tidx = tindex.build_reference_index(ref, w=8, k=12)
+    tidx = tindex.build_reference_index(ref, w=8, k=12, device="cpu")
     want = jmapper.map_batch(jidx, jnp.asarray(reads), jnp.asarray(lens),
                              backend="lax", **MAP_KW)
     got = tmapper.map_batch(tidx, torch.from_numpy(reads),
@@ -163,7 +163,7 @@ def test_index_carry_across():
     carried = tindex.index_from_arrays(np.asarray(jidx.ref),
                                        np.asarray(jidx.hashes),
                                        np.asarray(jidx.positions), device="cpu")
-    own = tindex.build_reference_index(ref, w=8, k=12)
+    own = tindex.build_reference_index(ref, w=8, k=12, device="cpu")
     for name in own._fields:
         assert torch.equal(getattr(carried, name), getattr(own, name)), name
     np.testing.assert_array_equal(as_u32(carried.hashes), np.asarray(jidx.hashes))
@@ -175,7 +175,7 @@ def test_index_carry_across():
 
 def test_linear_map_executor_matches_map_batch():
     ref, reads, lens = mapper_inputs()
-    tidx = tindex.build_reference_index(ref, w=8, k=12)
+    tidx = tindex.build_reference_index(ref, w=8, k=12, device="cpu")
     ex = tmapper.LinearMapExecutor(backend="torch", max_candidates=4, **MAP_KW)
     got = ex(tidx, reads, lens)
     want = tmapper.map_batch(tidx, reads, lens, backend="torch", **MAP_KW)
@@ -187,11 +187,11 @@ def test_linear_map_executor_matches_map_batch():
 
 def test_epoched_index_refresh_bumps_epoch():
     epi = tindex.build_epoched_index(simulate.random_reference(600, seed=1),
-                                     w=8, k=12)
+                                     w=8, k=12, device="cpu")
     old, epoch = epi.current()
     new_ref = simulate.random_reference(700, seed=2)
     assert epi.refresh(new_ref) == epoch + 1
     idx, _ = epi.current()
     assert idx.ref.shape[0] == 700 and idx is not old
     np.testing.assert_array_equal(
-        as_u32(idx.hashes), tmin.build_index(new_ref, w=8, k=12).hashes)
+        as_u32(idx.hashes), tmin.build_index(new_ref, w=8, k=12, device="cpu").hashes)

@@ -61,7 +61,8 @@ def ref_npz(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def epi(ref_npz):
-    return minimizer_index.build_epoched_index(ref_npz["in/ref"], w=W, k=K)
+    return minimizer_index.build_epoched_index(ref_npz["in/ref"], w=W, k=K,
+                                              device="cpu")
 
 
 def inputs(ref_npz):

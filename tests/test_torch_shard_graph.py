@@ -43,7 +43,7 @@ def gidx(ref_npz):
     variants = simulate.simulate_variants(ref, n_snp=20, n_ins=10, n_del=10,
                                           seed=7)
     return graph_index.build_graph_index(ref, variants, w=8, k=12,
-                                         window=128 + 2 * CFG.w)
+                                         window=128 + 2 * CFG.w, device="cpu")
 
 
 def stage_of(ref_npz, case: str) -> CandidateStageResult:
@@ -270,7 +270,8 @@ def test_engine_sharded_pipelined_matches_reference(ref_npz, gidx):
 def test_engine_sharded_graph_rejects_linear_index(ref_npz):
     from repro_torch.core import minimizer_index
 
-    idx = minimizer_index.build_reference_index(ref_npz["in/ref"], w=8, k=12)
+    idx = minimizer_index.build_reference_index(ref_npz["in/ref"], w=8, k=12,
+                                                device="cpu")
     with pytest.raises(TypeError, match="GraphIndex"):
         ServeEngine(idx, EngineConfig(num_shards=2, workload="graph",
                                       **dict(BASE, align_backend="graph_torch")))
