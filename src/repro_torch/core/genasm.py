@@ -12,13 +12,17 @@ advances the whole batch through its window steps together (one
 ``[B, w]`` DC call per step), which is also the loop
 `repro_torch.align.batched` drives the CUDA kernels through — the two
 differ only in the DC function, so they are bit-identical by
-construction.
+construction.  Each step traces a ``dc`` and a ``tb`` span (``window``:
+the step) into the context's current tracer (`obs.trace.current_tracer`;
+`core.mapper.LinearMapExecutor` sets it).
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 import torch
+
+from repro_torch.obs import trace
 
 from . import genasm_dc
 from .bitvector import SENTINEL, WILDCARD, pattern_bitmasks
@@ -141,25 +145,28 @@ def align(texts: torch.Tensor, patterns: torch.Tensor, p_lens: torch.Tensor,
     carry = (zeros, zeros, zeros, torch.zeros(b, dtype=torch.bool, device=dev),
              p_lens <= 0)
     ops_w, n_ops_w = [], []
-    for _ in range(n_win):
+    tr = trace.current_tracer()
+    for i in range(n_win):
         cur_p, cur_t = carry[0], carry[1]
         sub_p = slice_windows(pats, cur_p, w)
         sub_t = slice_windows(txts, cur_t, w)
-        d_min, store = dc_fn(sub_t, sub_p)
-        d_min = d_min.to(torch.int64)
-        d_start = torch.clamp(d_min, max=k)
-        cap_p = torch.clamp(p_lens - cur_p, max=cfg.commit)
-        if cfg.store_r:
-            pm = pattern_bitmasks(sub_p, w)
-            pc, tc, err, ops, n_ops, stuck = window_tb_r(
-                store, sub_t, pm, d_start, cap_p, w=w, o=o, k=k,
-                affine=cfg.affine)
-        else:
-            pc, tc, err, ops, n_ops, stuck = window_tb(
-                store, d_start, cap_p, w=w, o=o, k=k, affine=cfg.affine)
-        carry, n_emit = window_commit(
-            carry, d_min=d_min, pc=pc, tc=tc, err=err,
-            n_ops=n_ops, stuck=stuck, p_len=p_lens, k=k)
+        with tr.device_span("dc", dev, window=i):
+            d_min, store = dc_fn(sub_t, sub_p)
+        with tr.span("tb", window=i):
+            d_min = d_min.to(torch.int64)
+            d_start = torch.clamp(d_min, max=k)
+            cap_p = torch.clamp(p_lens - cur_p, max=cfg.commit)
+            if cfg.store_r:
+                pm = pattern_bitmasks(sub_p, w)
+                pc, tc, err, ops, n_ops, stuck = window_tb_r(
+                    store, sub_t, pm, d_start, cap_p, w=w, o=o, k=k,
+                    affine=cfg.affine)
+            else:
+                pc, tc, err, ops, n_ops, stuck = window_tb(
+                    store, d_start, cap_p, w=w, o=o, k=k, affine=cfg.affine)
+            carry, n_emit = window_commit(
+                carry, d_min=d_min, pc=pc, tc=tc, err=err,
+                n_ops=n_ops, stuck=stuck, p_len=p_lens, k=k)
         ops_w.append(ops)
         n_ops_w.append(n_emit)
 

@@ -18,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.obs import trace
+
 from .bitvector import SENTINEL, WILDCARD
 from .genasm import GenASMConfig
 from .genasm_dc import bitap_search
@@ -96,11 +98,26 @@ def seed_filter_rows(ref_buf: torch.Tensor, ref_offset, ref_len: int,
     position)`` candidate per read (``POS_SENTINEL`` when the read had no
     seed hits).  Returns that candidate's ``[t_cap]`` alignment text.
     """
-    b = reads.shape[0]
     lens = read_lens.to(torch.int64)
-    starts, votes = seed_candidates(reads, hashes, positions,
-                                    w=minimizer_w, k=minimizer_k,
-                                    max_candidates=max_candidates)
+    tr = trace.current_tracer()
+    with tr.device_span("seed", reads.device):
+        starts, votes = seed_candidates(reads, hashes, positions,
+                                        w=minimizer_w, k=minimizer_k,
+                                        max_candidates=max_candidates)
+    with tr.device_span("filter", reads.device) as span:
+        out = _filter_rows(ref_buf, ref_offset, ref_len, starts, votes, reads,
+                           lens, p_cap=p_cap, t_cap=t_cap,
+                           filter_bits=filter_bits, filter_k=filter_k)
+    if tr.enabled:
+        tr.later(span, "passed", _host_count(out.prefilter_ok))
+    return out
+
+
+def _filter_rows(ref_buf, ref_offset, ref_len, starts, votes, reads, lens, *,
+                 p_cap, t_cap, filter_bits, filter_k) -> SeedFilterResult:
+    """`seed_filter_rows` after seeding: the filter over each read's
+    candidates, the best candidate, its text window and the pattern."""
+    b = reads.shape[0]
     n_cand = starts.shape[1]
     # candidate starts are diagonal-bucketed to 32 (minimizer voting), so the
     # filter window must absorb bucket quantization + k edits of drift
@@ -139,6 +156,18 @@ def seed_filter_rows(ref_buf: torch.Tensor, ref_offset, ref_len: int,
         pattern=pat,
         distance=best_d.to(torch.int32),
     )
+
+
+def _host_count(mask: torch.Tensor):
+    """``() -> int``: the count of ``mask``, reduced on its device and, on
+    a card, copied to pinned memory without a synchronisation; call it
+    once the device has finished."""
+    n = mask.sum()
+    if n.device.type != "cuda":
+        return lambda: int(n)
+    host = torch.empty((), dtype=n.dtype, pin_memory=True)
+    host.copy_(n, non_blocking=True)
+    return lambda: int(host)
 
 
 def _one(result):
@@ -241,6 +270,16 @@ class LinearMapExecutor:
     attrs)`` on the monotonic clock, with the device synchronised at
     each stage boundary — which the serve engine replays into its
     tracer and metrics.
+
+    Each call also traces one tree of spans into ``tracer``, or, with
+    none given, into `obs.trace.PROCESS_TRACER` while a torch profiler
+    records (untraced otherwise): ``map_batch`` › ``seed_filter`` (the
+    stamps of ``last_times``) › ``seed``, ``filter`` (``passed``: rows
+    the filter kept); ``map_batch`` › ``align`` (``rows``: rows aligned)
+    › ``dc`` and ``tb`` a window step (``window``), from `core.genasm`'s
+    loop.  Every span carries ``batch``, the call's number; ``seed``,
+    ``filter`` and ``dc`` carry ``device_ms``, their device time on a
+    card (CUDA events read after the stage's synchronisation).
     """
 
     def __init__(self, *, cfg: GenASMConfig = GenASMConfig(),
@@ -250,25 +289,43 @@ class LinearMapExecutor:
                  max_candidates: int = 4,
                  minimizer_w: int = 10,
                  minimizer_k: int = 15,
-                 backend: str | None = None):
+                 backend: str | None = None,
+                 tracer: trace.Tracer | None = None):
         self._cfg, self._p_cap, self._backend = cfg, p_cap, backend
         self._sf_kw = dict(p_cap=p_cap, t_cap=p_cap + cfg.w * 2,
                            filter_bits=filter_bits, filter_k=filter_k,
                            max_candidates=max_candidates,
                            minimizer_w=minimizer_w, minimizer_k=minimizer_k)
         self.last_times: list[tuple[str, float, float, dict]] = []
+        self._tracer = tracer
+        self._calls = 0
 
     def __call__(self, index: ReferenceIndex, reads, read_lens) -> MapResult:
         dev = index.device
         reads = torch.as_tensor(reads, device=dev)
         lens = torch.as_tensor(read_lens, device=dev)
-        t0 = time.monotonic()
-        sf = seed_and_filter_batch(index, reads, lens, **self._sf_kw)
-        _sync(dev)
-        t1 = time.monotonic()
-        res = _finish(sf, lens, cfg=self._cfg, backend=self._backend,
-                      p_cap=self._p_cap)
-        _sync(dev)
-        t2 = time.monotonic()
+        self._calls += 1
+        tr = self._tracer
+        if tr is None:
+            tr = trace.PROCESS_TRACER if _profiling() else trace.NULL_TRACER
+        with trace.using(tr), tr.tagged(batch=self._calls), tr.span("map_batch"):
+            t0 = time.monotonic()
+            span = tr.begin("seed_filter", t0)
+            sf = seed_and_filter_batch(index, reads, lens, **self._sf_kw)
+            _sync(dev)
+            t1 = time.monotonic()
+            tr.end(span, t1)
+            span = tr.begin("align", t1, rows=reads.shape[0])
+            res = _finish(sf, lens, cfg=self._cfg, backend=self._backend,
+                          p_cap=self._p_cap)
+            _sync(dev)
+            t2 = time.monotonic()
+            tr.end(span, t2)
+            tr.resolve()
         self.last_times = [("seed_filter", t0, t1, {}), ("align", t1, t2, {})]
         return res
+
+
+def _profiling() -> bool:
+    """Whether a torch profiler records on this thread."""
+    return torch._C._autograd._profiler_enabled()

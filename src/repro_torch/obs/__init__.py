@@ -3,8 +3,9 @@
 Port of `repro.obs`, the serving path's instrument panel (DESIGN.md §12):
 
 * `trace` — thread-safe monotonic-clock `Span`/`Tracer` with parent
-  links and per-span attributes, a ring-buffer `TraceLog`, Chrome/
-  Perfetto ``trace_event`` JSON export, and a structured JSONL sink.
+  links, per-span attributes and CUDA-event device times, a ring-buffer
+  `TraceLog` with the offset to `torch.profiler`'s epoch clock, and
+  Chrome/Perfetto ``trace_event`` JSON export.
 * `attrib` — folds finished spans into a per-stage wall-time ledger
   (enqueue-wait → seed/filter → graph prefilter → DC filter → shard
   scatter → host merge → align → emit) and renders the Amdahl report:

@@ -3,31 +3,40 @@
 A `Span` is one named wall-time interval on the monotonic clock with a
 parent link and free-form attributes (bucket cap, tile rung, shard id,
 dc_rows, compile-vs-execute flag, …).  A `Tracer` hands them out either
-scoped (``with tracer.span("flush"):`` — nesting tracked per thread) or
-retroactively (``tracer.add(name, t0, t1)`` — how executors report
-stage timings they measured themselves), and appends finished spans to
-a bounded `TraceLog` ring buffer.
+scoped (``with tracer.span("flush"):`` — nesting tracked per thread),
+from stamps the caller took (``tracer.begin(name, t)`` …
+``tracer.end(span, t)``), or retroactively (``tracer.add(name, t0,
+t1)`` — how executors report stage timings they measured themselves),
+and appends finished spans to a bounded `TraceLog` ring buffer.  A
+``device_span`` also times its work on a CUDA device with a pair of
+events, read into the span's ``device_ms`` by ``resolve()`` once the
+caller has synchronised the device.
 
-The log exports two ways:
+``to_chrome()`` / ``export_chrome(path)`` export the log as Chrome
+``trace_event`` JSON (the *JSON Object Format*: ``{"traceEvents":
+[...]}``), loadable in Perfetto (https://ui.perfetto.dev) or
+``chrome://tracing``.  Scoped spans become ``"ph": "X"`` complete events
+on their thread's track; spans marked ``async_=True`` (e.g. per-request
+enqueue waits, which overlap freely) become ``"b"``/``"e"`` async pairs
+so they never break slice nesting; instant events become ``"ph": "i"``;
+counter samples (``tracer.counter(...)``, numeric attrs only) become
+``"ph": "C"`` counter tracks — Perfetto plots each attr as a series.
+The log knows the offset from the monotonic clock to the epoch clock
+that `torch.profiler`'s records carry (``to_epoch_ns``), so spans and a
+device trace can be laid over one another.
 
-* ``to_chrome()`` / ``export_chrome(path)`` — Chrome ``trace_event``
-  JSON (the *JSON Object Format*: ``{"traceEvents": [...]}``), loadable
-  in Perfetto (https://ui.perfetto.dev) or ``chrome://tracing``.
-  Scoped spans become ``"ph": "X"`` complete events on their thread's
-  track; spans marked ``async_=True`` (e.g. per-request enqueue waits,
-  which overlap freely) become ``"b"``/``"e"`` async pairs so they
-  never break slice nesting; instant events become ``"ph": "i"``;
-  counter samples (``tracer.counter(...)``, numeric attrs only) become
-  ``"ph": "C"`` counter tracks — Perfetto plots each attr as a series.
-* ``export_jsonl(path)`` — one structured JSON object per line (name,
-  t_start/t_end, duration, parent, tid, attrs), the machine-readable
-  sink for offline analysis.
+Code that cannot be handed a tracer reads the context's current one
+(`current_tracer`, `NULL_TRACER` unless a caller set one with
+`using`).  `PROCESS_TRACER` is the process-wide tracer
+`core.mapper.LinearMapExecutor` traces into while a torch profiler
+records.
 
 Everything is stdlib; a disabled tracer (`NULL_TRACER`) costs one
 attribute check per call site.  Copied from `repro.obs.trace`.
 """
 from __future__ import annotations
 
+import contextvars
 import itertools
 import json
 import threading
@@ -60,7 +69,7 @@ class Span:
         self.attrs.update(attrs)
 
     def to_dict(self) -> dict:
-        """Plain-dict form (the JSONL/`/trace` wire representation)."""
+        """Plain-dict form (the `/trace` wire representation)."""
         return {
             "name": self.name, "span_id": self.span_id,
             "parent_id": self.parent_id, "tid": self.tid,
@@ -96,6 +105,9 @@ class TraceLog:
         self._lock = threading.Lock()
         self.dropped = 0  # spans evicted by the ring bound
         self.t0 = time.monotonic()  # export time base
+        # monotonic -> epoch clock (`torch.profiler` stamps its records on
+        # the epoch clock)
+        self.epoch_offset_ns = time.time_ns() - time.monotonic_ns()
 
     @property
     def max_spans(self) -> int:
@@ -126,9 +138,19 @@ class TraceLog:
             self._buf.clear()
             self.dropped = 0
 
+    def to_epoch_ns(self, t: float) -> int:
+        """Monotonic-clock seconds ``t`` (a span's stamp) as epoch-clock
+        nanoseconds, the clock of `torch.profiler`'s records."""
+        return round(t * 1e9) + self.epoch_offset_ns
+
     # ------------------------------------------------------------- export --
     def to_chrome(self) -> dict:
-        """Chrome ``trace_event`` JSON object (Perfetto-loadable)."""
+        """Chrome ``trace_event`` JSON object (Perfetto-loadable).
+
+        ``otherData.ts0_epoch_ns`` is the epoch-clock time of ``ts`` 0: a
+        profiler record stamped ``E`` ns sits at ``(E - ts0_epoch_ns) /
+        1e3`` µs of this trace.
+        """
         events: list[dict] = []
         tids: dict[str, int] = {}
 
@@ -157,31 +179,28 @@ class TraceLog:
             else:
                 events.append({**base, "ph": "X", "args": args,
                                "dur": max((s.t_end - s.t_start) * 1e6, 0.0)})
-        return {"traceEvents": events, "displayTimeUnit": "ms"}
+        return {"traceEvents": events, "displayTimeUnit": "ms",
+                "otherData": {"ts0_epoch_ns": self.to_epoch_ns(self.t0)}}
 
     def export_chrome(self, path: str) -> None:
         """Write the Perfetto/Chrome ``trace_event`` JSON file."""
         with open(path, "w") as f:
             json.dump(self.to_chrome(), f)
 
-    def export_jsonl(self, path: str) -> None:
-        """Write one structured JSON object per span, oldest first."""
-        with open(path, "w") as f:
-            for s in self.spans():
-                f.write(json.dumps(s.to_dict()) + "\n")
-
 
 class Tracer:
     """Span factory over one `TraceLog`; per-thread nesting for parents.
 
     ``span()`` opens a scoped span (context manager — the parent is
-    whatever span encloses it on the same thread); ``add()`` records a
-    retroactive span from timestamps measured elsewhere (parented to
-    the thread's current open span); ``event()`` records an instant.
-    A tracer constructed with ``enabled=False`` turns every call into a
-    near-free no-op — call sites never need their own guards, though
-    hot loops may still check ``tracer.enabled`` to skip argument
-    setup.
+    whatever span encloses it on the same thread); ``begin()`` /
+    ``end()`` open and close one on stamps the caller took;
+    ``device_span()`` is a scoped span that also times its device work;
+    ``add()`` records a retroactive span from timestamps measured
+    elsewhere (parented to the thread's current open span); ``event()``
+    records an instant.  A tracer constructed with ``enabled=False``
+    turns every call into a near-free no-op — call sites never need
+    their own guards, though hot loops may still check
+    ``tracer.enabled`` to skip argument setup.
     """
 
     def __init__(self, enabled: bool = True,
@@ -192,11 +211,15 @@ class Tracer:
         self._tl = threading.local()
 
     # ------------------------------------------------------------ helpers --
+    def _local(self, name: str, make):
+        v = getattr(self._tl, name, None)
+        if v is None:
+            v = make()
+            setattr(self._tl, name, v)
+        return v
+
     def _stack(self) -> list[int]:
-        st = getattr(self._tl, "stack", None)
-        if st is None:
-            st = self._tl.stack = []
-        return st
+        return self._local("stack", list)
 
     def _tid(self) -> str:
         t = threading.current_thread()
@@ -208,23 +231,89 @@ class Tracer:
         return st[-1] if st else None
 
     # ------------------------------------------------------------ surface --
+    def begin(self, name: str, t: float | None = None, /, **attrs):
+        """Open a span at monotonic stamp ``t`` (now if None) and make it
+        the thread's innermost; close it with `end`."""
+        if not self.enabled:
+            return _NULL_SPAN
+        s = Span(name=name, t_start=time.monotonic() if t is None else t,
+                 span_id=next(self._ids), parent_id=self.current_parent(),
+                 tid=self._tid(),
+                 attrs={**self._local("tags", dict), **attrs})
+        self._stack().append(s.span_id)
+        return s
+
+    def end(self, s, t: float | None = None) -> None:
+        """Close span ``s`` at stamp ``t`` (now if None) and log it; spans
+        left open inside it (an exception skipped their `end`) are
+        dropped from the thread's nesting."""
+        if s is _NULL_SPAN:
+            return
+        st = self._stack()
+        while st and st.pop() != s.span_id:
+            pass
+        s.t_end = time.monotonic() if t is None else t
+        self.log.append(s)
+
     @contextmanager
     def span(self, name: str, **attrs):
         """Scoped span: ``with tracer.span("flush", bucket_cap=320) as s:``."""
-        if not self.enabled:
-            yield _NULL_SPAN
-            return
-        s = Span(name=name, t_start=time.monotonic(),
-                 span_id=next(self._ids), parent_id=self.current_parent(),
-                 tid=self._tid(), attrs=attrs)
-        st = self._stack()
-        st.append(s.span_id)
+        s = self.begin(name, None, **attrs)
         try:
             yield s
         finally:
-            st.pop()
-            s.t_end = time.monotonic()
-            self.log.append(s)
+            self.end(s)
+
+    @contextmanager
+    def device_span(self, name: str, device, **attrs):
+        """Scoped span whose work on ``device`` is timed too: on a CUDA
+        device by a pair of events around the block, read into the
+        span's ``device_ms`` by the first `resolve` after the caller has
+        synchronised the device; ``device_ms`` is None elsewhere.  No
+        synchronisation of its own."""
+        with self.span(name, **attrs) as s:
+            if not self.enabled or device.type != "cuda":
+                s.set(device_ms=None)
+                yield s
+                return
+            import torch
+
+            start = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield s
+            stop = torch.cuda.Event(enable_timing=True)
+            stop.record()
+            self.later(s, "device_ms", lambda: start.elapsed_time(stop))
+
+    def later(self, s, key: str, read) -> None:
+        """Set ``s.attrs[key] = read()`` at this thread's next `resolve`:
+        for a value the device has yet to produce."""
+        if self.enabled:
+            self._local("pending", list).append((s, key, read))
+
+    def resolve(self) -> None:
+        """Read every value `later` deferred on this thread; call it once
+        the device has finished their work (after a synchronise)."""
+        if not self.enabled:
+            return
+        pending = self._local("pending", list)
+        for s, key, read in pending:
+            s.attrs[key] = read()
+        pending.clear()
+
+    @contextmanager
+    def tagged(self, **attrs):
+        """Every span this thread opens in the block (`begin`, `span`,
+        `device_span`) carries ``attrs``."""
+        if not self.enabled:
+            yield
+            return
+        prev = self._local("tags", dict)
+        self._tl.tags = {**prev, **attrs}
+        try:
+            yield
+        finally:
+            self._tl.tags = prev
 
     def add(self, name: str, t_start: float, t_end: float, *,
             tid: str | None = None, parent: int | None = None,
@@ -265,6 +354,28 @@ class Tracer:
 
 
 NULL_TRACER = Tracer(enabled=False)
+# what `core.mapper.LinearMapExecutor` traces into while a torch profiler
+# records (and no tracer was handed to it)
+PROCESS_TRACER = Tracer()
+
+_current: contextvars.ContextVar[Tracer] = contextvars.ContextVar(
+    "repro_torch_tracer", default=NULL_TRACER)
+
+
+def current_tracer() -> Tracer:
+    """The tracer code in this context traces into (`NULL_TRACER` unless a
+    caller set one with `using`)."""
+    return _current.get()
+
+
+@contextmanager
+def using(tracer: Tracer):
+    """Make ``tracer`` the current tracer of this context in the block."""
+    token = _current.set(tracer)
+    try:
+        yield tracer
+    finally:
+        _current.reset(token)
 
 
 class StageTimer:
