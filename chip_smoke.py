@@ -24,7 +24,9 @@ and sequence-to-graph read-mapping deployments end to end through
                  n=1,192, m_bits=1,024, semiglobal and global; B=256,
                  n=5,192, m_bits=5,056) and once at L = 100,000 (B=8:
                  timed here, held against its plain version in the LM
-                 lane)
+                 lane); the linear mapper's filter at the benchmark's
+                 262,144 reads x 4 candidates (216-base regions, 128
+                 bits, k=12) against a 46,709,983-base buffer
   4. golden    — tests/data/serve_golden.paf byte for byte with cuda_dc and
                  cuda_dc_v2, offline and online
   5. serve     — a 4,641,652 bp reference (the length of E. coli K-12
@@ -92,7 +94,8 @@ and sequence-to-graph read-mapping deployments end to end through
                  ties and graph distances past 2048); a failover drill
                  that loses shard 1 in the scatter and again between merge
                  and align and gives the fault-free result; every kernel
-                 of the path (v1, v2, BitAlign at both sites) launched
+                 of the path (v1, v2, the linear filter, BitAlign at both
+                 sites) launched
  13. lm        — the model zoo's dense decoder LM (`repro_torch.models`,
                  `train`, `ckpt`; plain PyTorch, no kernel of the port):
                  reduced internlm2-1.8b with one set of weights on the card
@@ -226,7 +229,8 @@ H100_SPEC = ROOT / "src" / "repro_torch" / "obs" / "device_specs" / "h100_sxm.js
 KERNEL_ENTRIES = {"window_dc_batch": ("dc_wave_v1",),
                   "window_dc_batch_v2": ("dc_wave_v2",),
                   "bitalign_dc_batch": ("bitalign_wave",),
-                  "myers_distance_batch": ("myers_lanes", "myers_pipe")}
+                  "myers_distance_batch": ("myers_lanes", "myers_pipe"),
+                  "bitap_filter_batch": ("bitap_filter_scan",)}
 # per kernel: its main-path call sites (site, shape) and a sweep of shapes
 WINDOW_SITES = [("window_step", dict(b=256, w=64, k=24))]
 WINDOW_SWEEP = [dict(b=b, w=w, k=k) for b, w, k in (
@@ -249,6 +253,12 @@ SITES = {
         ("edit_distance_5k", dict(b=256, n=5192, m_bits=5056,
                                   mode="semiglobal")),
         ("global_1k", dict(b=1024, n=1192, m_bits=1024, mode="global")),
+    ],
+    # the linear mapper's filter at the benchmark's batch: 262,144 reads x 4
+    # candidates against a chromosome-21-length buffer
+    "bitap_filter_batch": [
+        ("filter", dict(b=262_144, c=4, filter_bits=128, k=12,
+                        ref_len=46_709_983)),
     ],
 }
 # one long pair set, L = 100,000: held against the plain version once
@@ -294,6 +304,18 @@ SWEEPS = {
         dict(b=3, n=64, m_bits=10272, mode="global", short=True),
         dict(b=3, n=400, m_bits=265_632, mode="global", short=True),
         dict(b=3, n=400, m_bits=327_680, mode="semiglobal", short=True),
+    ],
+    # nw 1..4, k = 0 and the edges of the 8-, 16- and 32-row instantiations,
+    # regions off both ends of a buffer that starts off a 16-byte boundary,
+    # short reads, planted ties, ragged lane counts
+    "bitap_filter_batch": [
+        dict(b=300, filter_bits=32, k=3), dict(b=300, filter_bits=64, k=5),
+        dict(b=300, filter_bits=96, k=9, offset=5),
+        dict(b=300, filter_bits=128, k=0),
+        *(dict(b=130, filter_bits=128, k=k) for k in (7, 8, 15, 16, 31)),
+        dict(b=500, filter_bits=128, k=12, ref_len=3000, edge=True, offset=7),
+        dict(b=500, filter_bits=128, k=12, short=True, ties=True, offset=1),
+        dict(b=37, c=3, filter_bits=64, k=12, region_len=17),
     ],
 }
 ED_SETTINGS = ((1000, 0.95, 1024), (1000, 0.80, 1024), (5000, 0.95, 256))
@@ -429,8 +451,12 @@ def launch_geometry(name: str, args, kw, dev) -> dict:
     """The launch a kernel makes for these inputs: warps in the grid,
     blocks, shared memory bytes per block (and Myers' words a lane, lanes
     a pair and warps a pair)."""
-    from repro_torch.kernels import bitalign, genasm_dc, genasm_dc_v2, myers
+    from repro_torch.kernels import (bitalign, bitap_filter, genasm_dc,
+                                     genasm_dc_v2, myers)
 
+    if name == "bitap_filter_batch":
+        return bitap_filter.launch_geometry(args[1].numel(), kw["filter_bits"],
+                                            kw["k"])
     b = args[0].shape[0]
     if name == "window_dc_batch":
         return genasm_dc.launch_geometry(b, kw["w"], kw["k"])
@@ -495,8 +521,31 @@ def myers_work(args, kw) -> tuple[int, int]:
     return b * (n + m_bits + 4 + 4), b * n * (23 * (m_bits // 32) + 7)
 
 
+def filter_work(args, kw) -> tuple[int, int]:
+    """(bytes, int32 operations) one call of the linear mapper's filter must
+    move and do.
+
+    Bytes: each lane's region bases and start read once, each read's
+    filter_bits bases and length read once, each lane's distance and
+    offset written once.  Operations, per region base of every lane: per
+    word, row 0 is shl1 + OR (4 ops) and each row d >= 1 two shl1 (3 ops
+    each), three ANDs and one OR (10 ops), since shl1(R_old[d]) serves row
+    d's M term and row d+1's S term; then one op a row to gather the rows'
+    top bits, two to find the first zero, and three for the running
+    minimum and its position (compare and two selects).  The mask table,
+    built once a lane, is not counted.
+    """
+    _, starts, _, _ = args
+    b, lanes = starts.shape[0], starts.numel()
+    bits, k, n = kw["filter_bits"], kw["k"], kw["region_len"]
+    return (lanes * (n + 8 + 8) + b * (bits + 8),
+            lanes * n * ((bits // 32) * (4 + 10 * k) + (k + 1) + 5))
+
+
 def work(name: str, args, kw) -> tuple[int, int]:
     """(bytes, int32 operations) of one call of kernel ``name``."""
+    if name == "bitap_filter_batch":
+        return filter_work(args, kw)
     if name == "bitalign_dc_batch":
         return bitalign_work(args, kw)
     if name == "myers_distance_batch":
@@ -611,7 +660,8 @@ def kernel_phase(torch, np, ops, dev) -> dict:
             torch.cuda.synchronize()
             sweep.append({**shape, "mismatches": mism, "max_abs_err": err})
             check(mism == 0, f"{kern.name} {shape}: {mism} mismatches")
-        slow_plain = kern.name in ("bitalign_dc_batch", "myers_distance_batch")
+        slow_plain = kern.name in ("bitalign_dc_batch", "myers_distance_batch",
+                                   "bitap_filter_batch")
         geometry = []
         for site, shape in SITES[kern.name]:
             args, kw = kern.make_inputs(np.random.default_rng(7), dev, **shape)
@@ -635,7 +685,8 @@ def kernel_phase(torch, np, ops, dev) -> dict:
             "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
             "bound_by": main["bound_by"], "bytes": main["bytes"],
             "int32_ops": main["int32_ops"],
-            # no single PyTorch call computes GenASM-DC, BitAlign or Myers
+            # no single PyTorch call computes GenASM-DC, BitAlign, Myers or
+            # the Bitap filter
             "library_ms": None, "sites": sites, "sweep": sweep,
         }
         if kern.name == "myers_distance_batch":  # the kernel alone, 3 trials
@@ -772,6 +823,9 @@ def serve_phase(torch, ops, sg) -> tuple[dict, float]:
           "cuda_dc and cuda_dc_v2 PAFs differ")
     check(launches["cuda_dc_v2"]["window_dc_batch_v2"] > 0, "v2 kernel not launched")
     check(launches["cuda_dc"]["window_dc_batch"] > 0, "v1 kernel not launched")
+    for backend, counts in launches.items():
+        check(counts["bitap_filter_batch"] > 0,
+              f"{backend}: filter kernel not launched")
 
     for backend in ("cuda_dc", "cuda_dc_v2"):
         ops.reset_launch_counts()
@@ -813,7 +867,8 @@ def serve_phase(torch, ops, sg) -> tuple[dict, float]:
     for backend in ("cuda_dc_v2", "cuda_dc"):
         emit("breakdown", **flush_breakdown(torch, gsvc, backend))
     return ({"window_dc_batch": launches["cuda_dc"]["window_dc_batch"],
-             "window_dc_batch_v2": launches["cuda_dc_v2"]["window_dc_batch_v2"]},
+             "window_dc_batch_v2": launches["cuda_dc_v2"]["window_dc_batch_v2"],
+             "bitap_filter_batch": launches["cuda_dc"]["bitap_filter_batch"]},
             results["cuda_dc_v2"]["reads_per_s"])
 
 
@@ -1431,7 +1486,8 @@ def shard_phase(torch, np, ops, sg, dev, graph, one_shard_rps) -> dict:
     sites["shard_golden"] = golden
     emit("shard_golden", runs=runs, launches=golden)
     check(golden["window_dc_batch"] > 0 and golden["window_dc_batch_v2"] > 0
-          and golden["bitalign_dc_batch"] > 0,
+          and golden["bitalign_dc_batch"] > 0
+          and golden["bitap_filter_batch"] > 0,
           "a kernel of the sharded golden runs was not launched")
 
     # the linear deployment at 2 shards, timed and pipelined: the serve
@@ -1467,6 +1523,7 @@ def shard_phase(torch, np, ops, sg, dev, graph, one_shard_rps) -> dict:
              launches=counts, card=card_line())
         check(same, f"{tag}: PAF differs from the 1-shard PAF's rows")
         check(counts["window_dc_batch_v2"] > 0, f"{tag}: v2 not launched")
+        check(counts["bitap_filter_batch"] > 0, f"{tag}: filter not launched")
     del lsvc8k
 
     # the graph deployment at 2 shards: the graph phase's first rows
@@ -3225,6 +3282,8 @@ def shard_per_device_phase(torch, ops, sg, device: str = "cuda:0") -> dict:
          seconds=time.perf_counter() - t_phase, card=card_line())
     check(same, "per-device 2-shard PAF differs from the 1-shard rows")
     check(full_counts["window_dc_batch_v2"] > 0, "per-device: v2 not launched")
+    check(full_counts["bitap_filter_batch"] > 0,
+          "per-device: filter not launched")
     return {k: golden_counts[k] + full_counts[k] for k in golden_counts}
 
 
@@ -3384,7 +3443,8 @@ def main() -> int:
         graph = graph_serve_phase(torch, ops, sg)
         launches["bitalign_dc_batch"] = graph["bitalign_dc_batch"]
         sharded = shard_phase(torch, np, ops, sg, dev, graph, one_shard_rps)
-        for name in ("window_dc_batch", "window_dc_batch_v2"):
+        for name in ("window_dc_batch", "window_dc_batch_v2",
+                     "bitap_filter_batch"):
             rows[name]["launches_by_site"] = {
                 "serve": launches[name],
                 **{site: c[name] for site, c in sharded.items() if c.get(name)}}

@@ -18,11 +18,12 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.kernels import bitap_filter as _kfilter
 from repro_torch.obs import trace
 
 from .bitvector import SENTINEL, WILDCARD
 from .genasm import GenASMConfig
-from .genasm_dc import bitap_search
+from .genasm_dc import bitap_search  # noqa: F401  (the reference binds it)
 from .minimizer_index import ReferenceIndex, build_reference_index  # noqa: F401
 from .segram.minimizer import seed_candidates
 
@@ -92,11 +93,12 @@ def seed_filter_rows(ref_buf: torch.Tensor, ref_offset, ref_len: int,
     is what keeps 1-shard and N-shard output identical.
 
     The filter takes the exact distance of each read's first
-    ``filter_bits`` bases against every candidate region (one
-    `bitap_search` over ``[B·C]`` lanes), refines each candidate's start
-    to its best match, and keeps the lexicographically best ``(distance,
-    position)`` candidate per read (``POS_SENTINEL`` when the read had no
-    seed hits).  Returns that candidate's ``[t_cap]`` alignment text.
+    ``filter_bits`` bases against every candidate region (on a card one
+    `kernels.bitap_filter` launch over ``[B·C]`` lanes, on the CPU one
+    `bitap_search` over them), refines each candidate's start to its best
+    match, and keeps the lexicographically best ``(distance, position)``
+    candidate per read (``POS_SENTINEL`` when the read had no seed hits).
+    Returns that candidate's ``[t_cap]`` alignment text.
     """
     lens = read_lens.to(torch.int64)
     tr = trace.current_tracer()
@@ -117,25 +119,19 @@ def _filter_rows(ref_buf, ref_offset, ref_len, starts, votes, reads, lens, *,
                  p_cap, t_cap, filter_bits, filter_k) -> SeedFilterResult:
     """`seed_filter_rows` after seeding: the filter over each read's
     candidates, the best candidate, its text window and the pattern."""
-    b = reads.shape[0]
-    n_cand = starts.shape[1]
     # candidate starts are diagonal-bucketed to 32 (minimizer voting), so the
     # filter window must absorb bucket quantization + k edits of drift
     margin = filter_k + 32
     region_len = filter_bits + 2 * margin
 
     # pre-alignment filter (use case 2): exact distance of the read's
-    # first filter_bits bases against each candidate region prefix
-    bit_idx = torch.arange(filter_bits, device=reads.device)
-    fpat = torch.where(bit_idx < lens.clamp(max=filter_bits).unsqueeze(1),
-                       reads[:, :filter_bits], WILDCARD).to(torch.int8)
+    # first filter_bits bases against each candidate region, and the first
+    # region position that reaches it
     s0 = (starts - margin).clamp(0, max(ref_len - 1, 0))  # [B, C] global
-    region = _ref_window(ref_buf, s0 - ref_offset,
-                         region_len).reshape(b * n_cand, region_len)
-    dists = bitap_search(region, fpat.repeat_interleave(n_cand, dim=0),
-                         m_bits=filter_bits, k=filter_k).reshape(b, n_cand, -1)
-    fd = dists.min(-1).values
-    fpos = s0 + dists.argmin(-1)
+    fd, off = _kfilter.bitap_filter_batch(
+        ref_buf, s0 - ref_offset, reads.to(torch.int8), lens,
+        filter_bits=filter_bits, k=filter_k, region_len=region_len)
+    fpos = s0 + off
     fd = torch.where(votes > 0, fd, filter_k + 1)
     fpos = torch.where(votes > 0, fpos, POS_SENTINEL)
     best = lex_best(fd, fpos).unsqueeze(1)

@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # C entry points per source: name -> (argtypes, restype)
 SIGNATURES = {
     "genasm_dc": {
@@ -57,6 +57,15 @@ SIGNATURES = {
         # (batch, m_bits, device, out int[6]: warps, blocks, shared bytes
         #  per block, words a lane, lanes a pair, warps a pair)
         "myers_distance_geometry": ((_I, _I, _I, _P), _I),
+    },
+    "bitap_filter": {
+        # (ref, ref_len, starts, reads, read_stride, read_lens, dist, off,
+        #  lanes, cands, m_bits, region, k, device, stream)
+        "bitap_filter": ((_P, _L, _P, _P, _I, _P, _P, _P, _L, _I, _I, _I, _I, _I,
+                          _P), _I),
+        "bitap_filter_max_k": ((), _I),
+        # (lanes, m_bits, k, out int[3]: warps, blocks, shared bytes per block)
+        "bitap_filter_geometry": ((_L, _I, _I, _P), _I),
     },
     "word_ops": {
         # (out, threads, n, device, stream)

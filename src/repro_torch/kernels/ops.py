@@ -2,7 +2,8 @@
 
 Each entry of `KERNELS` names a wrapper (CUDA kernel on a CUDA tensor,
 plain PyTorch on a CPU tensor), its plain version, the Pallas TPU kernel
-it replaces, and ``make_inputs(rng, device, **shape) -> (args, kwargs)``,
+it replaces (for the linear mapper's filter, which the reference runs as
+plain XLA, that path), and ``make_inputs(rng, device, **shape) -> (args, kwargs)``,
 which draws seeded inputs at a shape so that ``wrapper(*args, **kwargs)``
 and ``plain(*args, **kwargs)`` can be held against each other.
 `reset_launch_counts` / `launch_counts` read the wrappers' ``launches``
@@ -31,6 +32,7 @@ from repro_torch.core.segram.graph import HOP_LIMIT
 from repro_torch.core.myers import myers_distance_batch as myers_plain
 
 from .bitalign import bitalign_dc_batch
+from .bitap_filter import bitap_filter_batch, bitap_filter_batch_plain
 from .genasm_dc import window_dc_batch, window_dc_batch_plain
 from .genasm_dc_v2 import window_dc_batch_v2, window_dc_batch_v2_plain
 from .myers import myers_distance_batch
@@ -43,7 +45,7 @@ class Kernel(NamedTuple):
     wrapper: Callable
     plain: Callable
     source: str  # CUDA source, repository path
-    replaces: str  # the Pallas kernel function, file:line
+    replaces: str  # the Pallas kernel function (or plain XLA path), file:line
     make_inputs: Callable  # (rng, device, **shape) -> (args, kwargs)
 
 
@@ -106,6 +108,56 @@ def myers_inputs(rng: np.random.Generator, device, *, b: int, n: int,
     return args, dict(m_bits=m_bits, mode=mode)
 
 
+def filter_inputs(rng: np.random.Generator, device, *, b: int, c: int = 4,
+                  filter_bits: int = 128, k: int = 12, region_len: int | None = None,
+                  ref_len: int = 1 << 16, offset: int = 0, short: bool = False,
+                  edge: bool = False, ties: bool = False):
+    """Random inputs for `bitap_filter_batch`, laid out as the linear
+    mapper's filter lays them out.
+
+    A reference of ``ref_len`` bases (ACGT, 0.2% id 4), a view ``offset``
+    bytes into its buffer; reads of ``filter_bits + 32`` bases copied from
+    it with 4% substitutions.  Candidate 0 of each read holds the read's
+    place, the others lie at random (with ``edge``, before the buffer's
+    start and past its end too).  ``region_len`` defaults to the mapper's
+    ``filter_bits + 2 (k + 32)``.  With ``short`` the read lengths are
+    drawn in ``[0, filter_bits]``, the first two being 0 and 1; with
+    ``ties`` the reference starts with a period-4 stretch from which half
+    the reads are copied, so a read ties with itself every 4 positions.
+    """
+    region_len = region_len or filter_bits + 2 * (k + 32)
+    cap = filter_bits + 32
+    buf = rng.integers(0, 4, size=offset + ref_len).astype(np.int8)
+    buf[rng.random(buf.size) < 0.002] = 4
+    ref = buf[offset:]
+    hi = max(ref_len - cap, 1)
+    true = rng.integers(0, hi, size=b)
+    if ties:
+        stretch = min(ref_len, 4 * region_len + cap)
+        ref[:stretch] = np.resize(np.arange(4, dtype=np.int8), stretch)
+        true[: b // 2] = rng.integers(0, max(stretch - cap, 1), size=b // 2)
+    reads = ref[np.minimum(true[:, None] + np.arange(cap), ref_len - 1)]
+    subs = rng.random((b, cap)) < 0.04
+    reads[subs] = rng.integers(0, 4, size=int(subs.sum()))
+    if edge:
+        starts = rng.integers(-region_len, ref_len + region_len, size=(b, c))
+    else:
+        starts = rng.integers(0, hi, size=(b, c))
+    if c:
+        starts[:, 0] = true - rng.integers(0, max(region_len - filter_bits, 0) + 1,
+                                           size=b)
+    lens = np.full(b, cap)
+    if short:
+        lens = rng.integers(0, filter_bits + 1, size=b)
+        lens[:2] = [0, 1][:b]
+    dev_buf = torch.from_numpy(buf).to(device)
+    args = (dev_buf[offset:],
+            *(torch.from_numpy(x).to(device)
+              for x in (starts.astype(np.int64), reads.astype(np.int8),
+                        lens.astype(np.int64))))
+    return args, dict(filter_bits=filter_bits, k=k, region_len=region_len)
+
+
 KERNELS = (
     Kernel("window_dc_batch", window_dc_batch, window_dc_batch_plain,
            "src/repro_torch/kernels/csrc/genasm_dc.cu",
@@ -119,6 +171,10 @@ KERNELS = (
     Kernel("myers_distance_batch", myers_distance_batch, myers_plain,
            "src/repro_torch/kernels/csrc/myers.cu",
            "src/repro/kernels/myers.py:96", myers_inputs),
+    # no Pallas kernel: the reference's filter is plain XLA (lax.scan)
+    Kernel("bitap_filter_batch", bitap_filter_batch, bitap_filter_batch_plain,
+           "src/repro_torch/kernels/csrc/bitap_filter.cu",
+           "src/repro/core/genasm_dc.py:124", filter_inputs),
 )
 
 

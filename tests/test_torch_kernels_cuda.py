@@ -3,7 +3,8 @@
 A CUDA kernel has no CPU mode, so these cases skip without a card (the
 CPU suite holds the plain versions against the JAX reference in
 tests/test_torch_dc.py, tests/test_torch_graph_align.py and
-tests/test_torch_myers.py).  The file
+tests/test_torch_myers.py, and the linear filter's against its
+definition in tests/test_torch_bitap_filter.py).  The file
 imports no JAX, so it also runs on a machine with a GPU and no JAX:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_kernels_cuda.py
@@ -71,9 +72,36 @@ MYERS_SHAPES = [
     dict(b=3, n=400, m_bits=265_632, mode="global", short=True),
     dict(b=3, n=400, m_bits=327_680, mode="semiglobal", short=True),
 ]
+# the linear mapper's filter: its main-path widths and budget (16,384 lanes
+# of 216 bases), nw 1..4, k = 0, the edges of the 8-, 16- and 32-row
+# instantiations (k = 7, 8, 15, 16) and the kernel's maximum, regions before
+# the buffer's start and past its end (SENTINEL) from a buffer that starts
+# off a 16-byte boundary, reads shorter than filter_bits (WILDCARD), planted
+# ties, ragged lane counts (one and three candidates, a part-filled last
+# block) and regions of one and 17 bases
+FILTER_SHAPES = [
+    dict(b=4096, c=4, filter_bits=128, k=12, ref_len=1 << 20),
+    dict(b=300, filter_bits=32, k=3),
+    dict(b=300, filter_bits=64, k=5),
+    dict(b=300, filter_bits=96, k=9, offset=5),
+    dict(b=300, filter_bits=128, k=0),
+    *(dict(b=130, filter_bits=128, k=k) for k in (7, 8, 15, 16)),
+    dict(b=130, filter_bits=128, k=31),
+    dict(b=37, c=3, filter_bits=32, k=31),
+    dict(b=500, filter_bits=128, k=12, ref_len=3000, edge=True, offset=7),
+    dict(b=500, filter_bits=64, k=6, region_len=150, ref_len=700, edge=True,
+         offset=13),
+    dict(b=500, filter_bits=128, k=12, short=True, offset=1),
+    dict(b=500, filter_bits=128, k=12, ties=True),
+    dict(b=500, filter_bits=96, k=12, ties=True, short=True, edge=True,
+         ref_len=1000),
+    dict(b=77, c=1, filter_bits=128, k=12, region_len=17),
+    dict(b=77, c=4, filter_bits=64, k=4, region_len=1),
+]
 SHAPES = {"window_dc_batch": WINDOW_SHAPES, "window_dc_batch_v2": WINDOW_SHAPES,
           "bitalign_dc_batch": BITALIGN_SHAPES,
-          "myers_distance_batch": MYERS_SHAPES}
+          "myers_distance_batch": MYERS_SHAPES,
+          "bitap_filter_batch": FILTER_SHAPES}
 CASES = [(kern, shape) for kern in ops.KERNELS for shape in SHAPES[kern.name]]
 
 
@@ -162,6 +190,95 @@ def test_myers_empty_inputs_launch_nothing(cuda_device):
 
 
 @pytest.mark.cuda
+def test_bitap_filter_rejects_bad_input(cuda_device):
+    from repro_torch.kernels import _build, bitap_filter
+
+    args, kw = ops.filter_inputs(np.random.default_rng(0), cuda_device, b=4)
+    kern = bitap_filter.bitap_filter_batch
+    max_k = _build.library("bitap_filter").bitap_filter_max_k()
+    assert max_k == 31
+    with pytest.raises(ValueError):
+        kern(*args, **{**kw, "k": max_k + 1})  # beyond the register rows
+    with pytest.raises(ValueError):
+        kern(*args, **{**kw, "filter_bits": 160})
+    with pytest.raises(ValueError):
+        kern(args[0], args[1], args[2].cpu(), args[3], **kw)
+    with pytest.raises(TypeError):
+        kern(args[0], args[1].int(), args[2], args[3], **kw)
+    with pytest.raises(TypeError):
+        kern(args[0].long(), *args[1:], **kw)
+
+
+def filter_rows_inputs(device, rng):
+    """`core.mapper._filter_rows`' arguments for a shard-like buffer: the
+    global reference's bases ``[1000, 31000)`` of 50,000, its offset a 0-d
+    tensor on ``device``, candidates before, inside and past the buffer,
+    some without votes."""
+    (ref, starts, reads, lens), _ = ops.filter_inputs(
+        rng, "cpu", b=2048, edge=True, short=True, ref_len=50_000)
+    votes = torch.from_numpy(rng.integers(0, 3, size=tuple(starts.shape)))
+    return dict(ref_buf=ref[1000:31_000].to(device),
+                ref_offset=torch.tensor(1000, device=device), ref_len=50_000,
+                starts=(starts + 44).to(device), votes=votes.to(device),
+                reads=reads.to(device), lens=lens.to(device))
+
+
+@pytest.mark.cuda
+def test_filter_rows_on_the_card_equal_the_cpu(cuda_device):
+    """The linear mapper's filter stage on the card: one kernel launch, no
+    host synchronisation, and every field the CPU's plain path gives."""
+    from repro_torch.core import mapper
+    from repro_torch.kernels import bitap_filter
+
+    kw = dict(p_cap=160, t_cap=288, filter_bits=128, filter_k=12)
+    args = filter_rows_inputs(cuda_device, np.random.default_rng(3))
+    mapper._filter_rows(**args, **kw)  # the library built and loaded
+    torch.cuda.synchronize()
+    launches = bitap_filter.bitap_filter_batch.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = mapper._filter_rows(**args, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert bitap_filter.bitap_filter_batch.launches == launches + 1
+    want = mapper._filter_rows(**{n: x.cpu() if torch.is_tensor(x) else x
+                                  for n, x in args.items()}, **kw)
+    for name, g, w in zip(mapper.SeedFilterResult._fields, got, want):
+        assert g.device.type == "cuda"
+        assert torch.equal(g.cpu(), w), name
+    ok = want.prefilter_ok
+    assert ok.any() and not ok.all()
+
+
+@pytest.mark.cuda
+def test_sharded_linear_mapping_on_the_card(cuda_device):
+    """`map_batch_sharded` at 1 and 2 shards on one card (each shard's
+    filter takes its slice's offset as a 0-d device tensor) equal each
+    other and the CPU's 1-shard rows."""
+    from repro_torch import shard
+    from repro_torch.genomics import encode, simulate
+    from repro_torch.kernels import bitap_filter
+
+    ref = simulate.random_reference(40_000, seed=7)
+    rs = simulate.simulate_reads(ref, n_reads=256, read_len=150, seed=8)
+    reads, lens = encode.batch_reads(rs.reads, 256)
+    runs = {}
+    for name, n, dev in (("card1", 1, cuda_device), ("card2", 2, cuda_device),
+                         ("cpu1", 1, torch.device("cpu"))):
+        index = shard.build_sharded_index(ref, n, devices=(dev,))
+        before = bitap_filter.bitap_filter_batch.launches
+        runs[name] = shard.map_batch_sharded(index, reads, lens, backend="torch")
+        launched = bitap_filter.bitap_filter_batch.launches - before
+        assert launched == (n if dev.type == "cuda" else 0), name
+    for f in runs["cpu1"]._fields:
+        want = torch.as_tensor(getattr(runs["cpu1"], f)).cpu()
+        for name in ("card1", "card2"):
+            got = torch.as_tensor(getattr(runs[name], f)).cpu()
+            assert torch.equal(got, want), (name, f)
+    assert int((torch.as_tensor(runs["cpu1"].position) >= 0).sum()) >= 200
+
+
+@pytest.mark.cuda
 def test_wavefront_launch_geometry(cuda_device):
     """One warp per window, one window a block (v1), four a block (v2;
     three at w = 128 from k = 28); BitAlign packs two graph lanes a warp up to
@@ -196,6 +313,14 @@ def test_wavefront_launch_geometry(cuda_device):
         warps=256, blocks=64, smem_bytes=4 * (64 * 2 * 32 + 16) * 4)
     assert bitalign.launch_geometry(37, 128, 15, True, cuda_device) == dict(
         warps=20, blocks=5, smem_bytes=4 * (32 * 4 * 32 + 2 * 16) * 4)
+    from repro_torch.kernels import bitap_filter
+
+    # the filter: one thread a lane, 128 lanes a block, 6 masks of nw words
+    # a lane in shared memory
+    assert bitap_filter.launch_geometry(1_048_576, 128, 12) == dict(
+        warps=32_768, blocks=8_192, smem_bytes=6 * 4 * 128 * 4)
+    assert bitap_filter.launch_geometry(111, 32, 31) == dict(
+        warps=4, blocks=1, smem_bytes=6 * 1 * 128 * 4)
 
 
 def tied_stage(s: int, b: int, rng, *, graph: bool):

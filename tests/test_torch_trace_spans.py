@@ -7,7 +7,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from repro_torch.core import mapper
+from repro_torch.core import genasm_dc, mapper
 from repro_torch.core.genasm import GenASMConfig
 from repro_torch.core.minimizer_index import build_reference_index
 from repro_torch.genomics import encode, simulate
@@ -148,13 +148,13 @@ def test_process_log_fills_under_a_profiler_on_its_clock(deployment, process_log
     """The profiler's events of the filter's ops lie inside the ``filter``
     spans once the spans are mapped onto the profiler's epoch clock."""
     index, arr, lens = deployment
-    search = mapper.bitap_search
+    search = genasm_dc.bitap_search
 
     def marked(*a, **k):
         with record_function("bitap_search_probe"):
             return search(*a, **k)
 
-    monkeypatch.setattr(mapper, "bitap_search", marked)
+    monkeypatch.setattr(genasm_dc, "bitap_search", marked)
     ex = mapper.LinearMapExecutor(p_cap=P_CAP, backend="torch")
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         for _ in range(2):
